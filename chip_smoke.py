@@ -1,0 +1,287 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+1. builds the port's CUDA kernels from ``xmca_tpu_torch/csrc`` (nvcc,
+   sm_90a) and prints the card, its power limit and the TF32 flags;
+2. holds each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at small ragged ones, and times both;
+3. drives the main path once through the public API at full width: two
+   synthetic (2000 steps x 250 x 400 cells) f32 fields through
+   ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
+   solve(complexify=True) -> rotate(10) -> rule_n(N_RUNS)``, with the
+   kernels' launch counters reset just before and read just after;
+4. runs the same path at a small size on the card and on the CPU (the
+   plain versions, with the same random bits) and compares them.
+
+Any failure exits non-zero; nothing is caught.  The last lines are the
+kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
+and the result line ``{"ok": true, "device": {...}}``.
+"""
+import json
+import subprocess
+import sys
+import time
+
+N_OBS, N_LAT, N_LON = 2000, 250, 400       # the bench.py workload
+N_ROT = 10
+N_RUNS = 64          # of the workload's 1000 surrogates: cut for time only
+SEED = 7
+
+
+def _fail(msg):
+    print('chip_smoke: FAILED: ' + msg, file=sys.stderr)
+    sys.exit(1)
+
+
+def _check(cond, msg):
+    if not cond:
+        _fail(msg)
+
+
+def _card_line():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(torch, fn, reps):
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
+    after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _pm1_field(torch, n, p, n_pad, p_pad, gen, dtype):
+    X = torch.zeros((n_pad, p_pad), dtype=dtype, device='cuda')
+    bits = torch.randint(0, 2, (n, p), generator=gen, device='cuda')
+    X[:n, :p] = (bits * 2 - 1).to(dtype)
+    return X
+
+
+def check_syrk(torch):
+    from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    n_pad, p_pad = pad_to(N_OBS, N_LAT * N_LON)
+    shapes = [(N_OBS, N_LAT * N_LON), (128, 128), (200, 3000),
+              (1000, 4100), (1900, 10000)]
+    for n, p in shapes:
+        X = _pm1_field(torch, n, p, *pad_to(n, p), gen, torch.int8)
+        G, ref = syrk(X, pm1=True), syrk_reference(X)
+        torch.cuda.synchronize()
+        _check(torch.equal(G, ref), 'syrk int8 +-1 differs at {}'
+               .format((n, p)))
+        Xb = X.to(torch.bfloat16)
+        _check(torch.equal(syrk(Xb), syrk_reference(Xb)),
+               'syrk bf16 +-1 differs at {}'.format((n, p)))
+    print('syrk int8/bf16 +-1 bit-equal to plain at {}'.format(shapes))
+
+    Xw = torch.randint(-127, 128, (256, 4096), generator=gen,
+                       device='cuda').to(torch.int8)
+    _check(torch.equal(syrk(Xw), syrk_reference(Xw)),
+           'syrk int8 [-127, 127] differs')
+    Xr = torch.randn((n_pad, p_pad), generator=gen,
+                     device='cuda').to(torch.bfloat16)
+    G, ref = syrk(Xr), syrk_reference(Xr)
+    rel = float((G - ref).abs().max() / ref.abs().max())
+    # two f32 sums of 100352 products in different orders, each with a
+    # rounding walk of ~4 sqrt(n_adds) u ~ 2e-5 of the diagonal (kernel:
+    # 1568 chunk folds of truncating MMAs; plain: f32 GEMM): 1e-4
+    _check(rel <= 1e-4, 'syrk bf16 random rel err {:.3e} > 1e-4'
+           .format(rel))
+    _check(torch.equal(G, G.T), 'syrk bf16 random not symmetric')
+    print('syrk int8 [-127,127] bit-equal; bf16 randn at {} rel err '
+          '{:.3e} (tol 1e-4)'.format((n_pad, p_pad), rel))
+
+    X = _pm1_field(torch, N_OBS, N_LAT * N_LON, n_pad, p_pad, gen,
+                   torch.int8)
+    err = float((syrk(X, pm1=True) - syrk_reference(X)).abs().max())
+    ms = _time_ms(torch, lambda: syrk(X, pm1=True), 20)
+    plain_ms = _time_ms(torch, lambda: syrk_reference(X), 5)
+    Xb = X.to(torch.bfloat16)
+    ms_bf16 = _time_ms(torch, lambda: syrk(Xb), 20)
+    plain_bf16 = _time_ms(torch, lambda: syrk_reference(Xb), 5)
+    print('syrk at {}: int8 kernel {:.3f} ms, plain (f64 matmul) {:.3f} '
+          'ms; bf16 kernel {:.3f} ms, plain (f32 matmul) {:.3f} ms'
+          .format((n_pad, p_pad), ms, plain_ms, ms_bf16, plain_bf16))
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+
+
+def check_sign_field(torch):
+    from xmca_tpu_torch.ops.surrogate import (sign_field_sums,
+                                              sign_field_sums_reference)
+    from xmca_tpu_torch.ops.syrk import pad_to
+    errs = []
+    for n, p in ((N_OBS, N_LAT * N_LON), (200, 3000)):
+        n_pad, p_pad = pad_to(n, p)
+        X, s = sign_field_sums(123, n, p, n_pad, p_pad, 'cuda')
+        Xr, sr = sign_field_sums_reference(123, n, p, n_pad, p_pad, 'cuda')
+        torch.cuda.synchronize()
+        errs.append(float((X.int() - Xr.int()).abs().max()))
+        _check(torch.equal(X, Xr), 'sign field differs at {}'.format((n, p)))
+        _check(torch.equal(s, sr), 'column sums differ at {}'.format((n, p)))
+        _check(not X[n:].any() and not X[:, p:].any(), 'pads not zero')
+        mean = float(X[:n, :p].float().mean())
+        _check(abs(mean) < 5.0 / (n * p) ** 0.5,
+               'field mean {:.3e} not ~0'.format(mean))
+    n_pad, p_pad = pad_to(N_OBS, N_LAT * N_LON)
+    ms = _time_ms(torch, lambda: sign_field_sums(
+        5, N_OBS, N_LAT * N_LON, n_pad, p_pad, 'cuda'), 20)
+    plain_ms = _time_ms(torch, lambda: sign_field_sums_reference(
+        5, N_OBS, N_LAT * N_LON, n_pad, p_pad, 'cuda'), 3)
+    print('sign_field_sums bit-equal (field and sums) at {} and {}; '
+          'kernel {:.3f} ms, plain {:.3f} ms'.format(
+              (N_OBS, N_LAT * N_LON), (200, 3000), ms, plain_ms))
+    return {'max_abs_err': errs[0], 'ms': ms, 'plain_ms': plain_ms}
+
+
+def make_fields(n_obs, n_lat, n_lon, seed0=1):
+    """Two synthetic f32 fields with red spectra, as bench.py makes them."""
+    import numpy as np
+    from xmca_tpu_torch.xarray import DataArray
+    t = np.arange(n_obs, dtype=np.float32)
+    modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 9)[None, :]
+                   / n_obs).astype(np.float32)
+    p = n_lat * n_lon
+    coords = {'time': t,
+              'lat': np.linspace(-60, 60, n_lat, dtype=np.float32),
+              'lon': np.linspace(0, 359, n_lon, dtype=np.float32)}
+    out = []
+    for seed in (seed0, seed0 + 1):
+        r = np.random.default_rng(seed)
+        data = modes @ r.standard_normal((8, p), dtype=np.float32)
+        data += r.standard_normal((n_obs, p), dtype=np.float32)
+        out.append(DataArray(data.reshape(n_obs, n_lat, n_lon),
+                             dims=('time', 'lat', 'lon'), coords=coords))
+    return out
+
+
+def workload(torch, left, right, device, n_runs, n_rot, walls=None):
+    """The main path; ``walls`` collects host seconds per stage (each
+    stage ends in a device synchronize)."""
+    from xmca_tpu_torch.xarray import xMCA
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        if walls is not None:
+            walls[name] = time.perf_counter() - t0
+        return out
+
+    m = stage('ingest', lambda: xMCA(left, right, device=device))
+
+    def solve():
+        m.set_solver(truncate=n_rot)
+        m.normalize()
+        m.apply_coslat()
+        m.solve(complexify=True)
+    stage('solve', solve)
+    stage('rotate', lambda: m.rotate(n_rot))
+    null = stage('rule_n', lambda: m.rule_n(n_runs, seed=SEED))
+    return m, null
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        _fail('no CUDA device (torch.cuda.is_available() is False)')
+    import numpy as np
+    from xmca_tpu_torch.ops import _build
+
+    card = _card_line()
+    t0 = time.perf_counter()
+    _build.library()
+    print('kernels built in {:.1f} s (nvcc, sm_90a)'.format(
+        time.perf_counter() - t0))
+    for line in _build.build_log().splitlines():
+        if 'registers' in line or 'spill' in line:
+            print('  ' + line.strip())
+    print('card: {} | torch {} | CUDA {} | allow_tf32 matmul={} cudnn={}'
+          .format(card, torch.__version__, torch.version.cuda,
+                  torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32))
+
+    k1 = check_syrk(torch)
+    k2 = check_sign_field(torch)
+
+    left, right = make_fields(N_OBS, N_LAT, N_LON)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    _build.reset_launch_counts()
+    m, null = workload(torch, left, right, 'cuda', N_RUNS, N_ROT, walls)
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del left, right
+
+    null = np.asarray(null)
+    var = np.asarray(m.variance(N_ROT))
+    iters = m._rule_n_iterations
+    q95 = np.quantile(null, 0.95, axis=1)
+    print('main path at {} x 2 x {} f32, N={}: ingest {:.3f} s, solve '
+          '{:.3f} s, rotate {:.3f} s, rule_n {:.3f} s ({:.4f} s/run)'
+          .format(N_OBS, N_LAT * N_LON, N_RUNS, walls['ingest'],
+                  walls['solve'], walls['rotate'], walls['rule_n'],
+                  walls['rule_n'] / N_RUNS))
+    print('launches {}; rotate varimax iterations {}; rule_n iterations '
+          'min/median/max {}/{}/{}; peak device memory {:.2f} GB'.format(
+              launches, m._rotate_iterations, iters.min(),
+              int(np.median(iters)), iters.max(), peak_gb))
+    print('rotated variance {}'.format(np.array2string(var, precision=4)))
+    print('null q95 {}'.format(np.array2string(q95, precision=4)))
+    _check(launches.get('syrk', 0) > 0, 'main path launched no syrk')
+    _check(launches.get('sign_field_sums', 0) > 0,
+           'main path launched no sign_field_sums')
+    _check(null.shape[0] == N_ROT and null.shape[1] >= int(0.9 * N_RUNS),
+           'Rule-N kept {} of {} runs'.format(null.shape[1], N_RUNS))
+    _check(np.isfinite(null).all() and np.isfinite(var).all(),
+           'non-finite results')
+
+    # the same path small, on the card and on the CPU (plain versions,
+    # same random bits): f32 roundoff through Cholesky, the subspace
+    # iteration and the rotation fixed points
+    small_l, small_r = make_fields(256, 16, 32, seed0=11)
+    mg, ng = workload(torch, small_l, small_r, 'cuda', 16, 4)
+    mc, nc = workload(torch, small_l, small_r, 'cpu', 16, 4)
+    sv_err = np.max(np.abs(mg.singular_values().values
+                           / mc.singular_values().values - 1))
+    var_err = np.max(np.abs(mg.variance().values / mc.variance().values
+                            - 1))
+    q_err = np.max(np.abs(np.quantile(ng, 0.95, axis=1)
+                          / np.quantile(nc, 0.95, axis=1) - 1))
+    print('small path card vs CPU: svals rel {:.2e} (tol 1e-4), rotated '
+          'variance rel {:.2e} (tol 1e-3), null q95 rel {:.2e} (tol 2e-2)'
+          .format(sv_err, var_err, q_err))
+    _check(sv_err <= 1e-4 and var_err <= 1e-3 and q_err <= 2e-2,
+           'card and CPU disagree on the small path')
+
+    kernels = [
+        dict(name='syrk', route='cuda', source='xmca_tpu_torch/csrc/syrk.cu',
+             replaces='xmca_tpu/ops/syrk.py:95',
+             launches=launches['syrk'], **k1),
+        dict(name='sign_field_sums', route='cuda',
+             source='xmca_tpu_torch/csrc/sign_field.cu',
+             replaces='xmca_tpu/ops/surrogate.py:403',
+             launches=launches['sign_field_sums'], **k2),
+    ]
+    print(json.dumps({'kernels': kernels}))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()

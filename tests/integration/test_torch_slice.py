@@ -1,0 +1,152 @@
+"""The port's main path end to end against the JAX package on CPU.
+
+``xMCA -> set_solver(truncate=4) -> normalize -> apply_coslat ->
+solve(complexify=True) -> rotate(4) -> rule_n(64)`` at 64 steps x (8 x 20)
+cells, float64, through both packages' public APIs.  The JAX model is
+configured for the accelerator Rule-N path the port always runs
+(generated +-1 surrogates, 1e-4 rotation tolerance, 6 ensemble subspace
+iterations).  The two packages draw different random bits, so Rule-N is
+compared statistically: the null q95 of each mode within 5% (JAX's own
+seed-to-seed spread at 64 runs is ~1%).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from xmca_tpu.compat import xr
+from xmca_tpu.core.fastpath import hilbert_imag_matrix
+from xmca_tpu.xarray import xMCA as JxMCA
+from xmca_tpu_torch.utils.state import install_state, to_state
+from xmca_tpu_torch.xarray import xMCA as TxMCA
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+N_OBS, N_LAT, N_LON, K = 64, 8, 20, 4
+
+
+def _fields():
+    t = np.arange(N_OBS, dtype=np.float64)
+    modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 9)[None] / N_OBS)
+    p = N_LAT * N_LON
+    coords = {'time': t, 'lat': np.linspace(-60, 60, N_LAT),
+              'lon': np.linspace(0, 359, N_LON)}
+    out = []
+    for seed in (1, 2):
+        r = np.random.default_rng(seed)
+        data = modes @ r.standard_normal((8, p)) + r.standard_normal(
+            (N_OBS, p))
+        out.append(xr.DataArray(data.reshape(N_OBS, N_LAT, N_LON),
+                                dims=('time', 'lat', 'lon'), coords=coords))
+    return out
+
+
+def _prepare(model):
+    model.set_solver(truncate=K)
+    model.normalize()
+    model.apply_coslat()
+    return model
+
+
+@pytest.fixture(scope='module')
+def solved():
+    left, right = _fields()
+    jm = _prepare(JxMCA(left, right))
+    jm.set_solver(spectrum='fast', surrogate_source='generated',
+                  surrogate_gen_dist='rademacher8', ensemble_tol=1e-4,
+                  ensemble_subspace_iters=6)
+    tm = _prepare(TxMCA(left, right, device='cpu'))
+    jm.solve(complexify=True)
+    tm.solve(complexify=True)
+    return jm, tm
+
+
+def test_solve_matches_jax(solved):
+    """Spectrum and exact totals: 1e-6 relative (f64; the start blocks
+    differ, and 12 subspace iterations converge both to ~1e-10)."""
+    jm, tm = solved
+    assert tm._complexify_pending
+    np.testing.assert_allclose(tm.singular_values().values,
+                               jm.singular_values().values, rtol=1e-6)
+    for key in ('total_covariance', 'total_squared_covariance'):
+        np.testing.assert_allclose(tm._analysis[key], jm._analysis[key],
+                                   rtol=1e-6)
+    np.testing.assert_allclose(tm.explained_variance().values,
+                               jm.explained_variance().values, rtol=1e-6)
+    np.testing.assert_allclose(tm.rule_north(), jm.rule_north(), rtol=1e-6)
+    for k in ('left', 'right'):
+        np.testing.assert_allclose(tm._field_stds[k], jm._field_stds[k],
+                                   rtol=1e-12)
+
+
+def test_rotate_and_rule_n_match_jax(solved):
+    """Rotated variances to 1e-5; Rule-N null q95 within 5%."""
+    jm, tm = solved
+    jm.rotate(K)
+    tm.rotate(K)
+    np.testing.assert_allclose(tm.variance().values, jm.variance().values,
+                               rtol=1e-5)
+    np.testing.assert_allclose(tm.norm()['left'].values,
+                               jm.norm()['left'].values, rtol=1e-5)
+    null_t = tm.rule_n(64, seed=7)
+    null_j = jm.rule_n(64, seed=7, disable_progress=True)
+    assert null_t.shape[0] == K and null_t.shape[1] >= int(0.9 * 64)
+    assert np.isfinite(null_t).all()
+    np.testing.assert_allclose(np.quantile(null_t, 0.95, axis=1),
+                               np.quantile(null_j, 0.95, axis=1),
+                               rtol=0.05)
+
+
+def test_state_carry_over_round_trip():
+    """JAX solve -> port rotate == JAX rotate (1e-5), and the port's
+    state installed back into a JAX model reads back unchanged."""
+    from xmca_tpu.array import MCA as JMCA
+    from xmca_tpu_torch.array import MCA as TMCA
+    left, right = _fields()
+    jm = _prepare(JxMCA(left, right))
+    jm.solve(complexify=True)
+    tm = TMCA(device='cpu')
+    H = hilbert_imag_matrix(N_OBS, np.float64)
+    install_state(tm, to_state(jm), hilbert=H)
+    np.testing.assert_array_equal(tm._hilbert_operator(N_OBS, tm._hilbert
+                                                       .dtype).numpy(), H)
+    np.testing.assert_allclose(tm.singular_values(), jm.singular_values()
+                               .values, rtol=0)
+    jm.rotate(K)
+    tm.rotate(K)
+    np.testing.assert_allclose(tm.variance(), jm.variance().values,
+                               rtol=1e-5)
+    assert np.isfinite(tm.rule_n(8, seed=3)).all()
+
+    back = JMCA()
+    state = to_state(tm)
+    install_state(back, state)
+    again = to_state(back)
+    for name in ('_singular_values', '_variance', '_var_idx',
+                 '_rotation_matrix'):
+        np.testing.assert_array_equal(again[name], state[name])
+    for k in ('left', 'right'):
+        np.testing.assert_array_equal(again['_V'][k], state['_V'][k])
+    assert again['_analysis'] == state['_analysis']
+    np.testing.assert_allclose(back.variance(), tm.variance(), rtol=0)
+
+
+def test_port_imports_no_jax():
+    code = ('import sys, xmca_tpu_torch, xmca_tpu_torch.xarray, '
+            'xmca_tpu_torch.array, xmca_tpu_torch.utils.state; '
+            'print(sorted(m for m in sys.modules if m.split(".")[0] '
+            'in ("jax", "jaxlib")))')
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == '[]'
+
+
+def test_cuda_device_without_card_raises():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    left, right = _fields()
+    with pytest.raises(RuntimeError):
+        TxMCA(left, right)

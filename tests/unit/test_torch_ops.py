@@ -1,0 +1,183 @@
+"""The port's kernels' plain versions and wrappers (xmca_tpu_torch.ops).
+
+On CPU tensors the wrappers run the plain PyTorch versions; these are
+held against known answers and against the JAX package's Pallas syrk in
+interpret mode.  The kernel-against-plain tests need an NVIDIA card
+(marker ``cuda``) and skip without one; ``chip_smoke.py`` runs the same
+comparisons at the main path's full shapes.  JAX is imported inside the
+tests that use it, so the card's tests run where JAX is not installed:
+``python -m pytest tests/unit/test_torch_ops.py -m cuda --noconftest``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from xmca_tpu_torch.ops import _build
+from xmca_tpu_torch.ops.surrogate import (philox4x32_10, sign_field_sums,
+                                          sign_field_sums_reference)
+from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (kernel tests run on the card)')
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('ctr, key, expected', [
+    ((0, 0, 0, 0), (0, 0), '6627e8d5 e169c58d bc57ac4c 9b00dbd8'),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     '408f276d 41c83b0e a20bc7c6 6d5451fd'),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0), 'd16cfe09 94fdcceb 5001e420 24126ea1'),
+])
+def test_philox_known_answers(ctr, key, expected):
+    """Random123's Philox4x32-10 known-answer vectors, bit for bit."""
+    lanes = [torch.tensor([c], dtype=torch.int64) for c in ctr]
+    out = philox4x32_10(*lanes, *key)
+    assert ' '.join('%08x' % int(o) for o in out) == expected
+
+
+def test_sign_field_sums_reference_mask_and_sums():
+    """+-1 in the live region, zero pads, exact int32 column sums, mean
+    ~0, deterministic per seed (mirrors the JAX package's
+    sign_field_sums test)."""
+    n, p = 200, 3000
+    n_pad, p_pad = pad_to(n, p)
+    X, colsum = sign_field_sums_reference(11, n, p, n_pad, p_pad)
+    assert X.shape == (n_pad, p_pad) and X.dtype == torch.int8
+    assert colsum.shape == (p_pad,) and colsum.dtype == torch.int32
+    Xn = X.numpy().astype(np.int64)
+    assert set(np.unique(Xn[:n, :p])) == {-1, 1}
+    assert (Xn[n:] == 0).all() and (Xn[:, p:] == 0).all()
+    np.testing.assert_array_equal(colsum.numpy(), Xn.sum(axis=0))
+    assert abs(Xn[:n, :p].mean()) < 5.0 / np.sqrt(n * p)
+    X2, _ = sign_field_sums_reference(11, n, p, n_pad, p_pad)
+    X3, _ = sign_field_sums_reference(12, n, p, n_pad, p_pad)
+    assert torch.equal(X, X2)
+    assert not torch.equal(X, X3)
+
+
+def test_sign_field_sums_bit_mapping():
+    """Element (r, 128 g + 32 w + b) is bit b of Philox word w at
+    counter (r, g, 0, 0) under key (seed ^ salt, 0)."""
+    from xmca_tpu_torch.ops.surrogate import SIGN_SALT, SIGN_STREAM
+    seed, r, g = 5, 3, 1
+    X, _ = sign_field_sums_reference(seed, 128, 256, 128, 256)
+    lanes = [torch.tensor([v], dtype=torch.int64) for v in (r, g, 0, 0)]
+    words = philox4x32_10(*lanes, seed ^ SIGN_SALT, SIGN_STREAM)
+    for w, word in enumerate(words):
+        for b in range(32):
+            bit = (int(word) >> b) & 1
+            assert int(X[r, 128 * g + 32 * w + b]) == (1 if bit else -1)
+
+
+def test_syrk_reference_matches_jax_syrk_int8():
+    """Plain syrk == the JAX Pallas syrk (interpret mode) bit for bit on
+    a +-1 int8 field with zero pads, at a multi-block shape."""
+    import jax.numpy as jnp
+    from xmca_tpu.ops.syrk import syrk as jax_syrk
+    n, p = 1536, 1024
+    rng = np.random.default_rng(1)
+    X = rng.choice(np.array([-1, 1], np.int8), size=(n, p))
+    X[1500:] = 0
+    X[:, 1000:] = 0
+    G_jax = np.asarray(jax_syrk(jnp.asarray(X), interpret=True))
+    G = syrk(torch.from_numpy(X), pm1=True).numpy()
+    np.testing.assert_array_equal(G, G_jax)
+    np.testing.assert_array_equal(G, G.T)
+
+
+def test_syrk_reference_matches_jax_syrk_bf16():
+    """Plain syrk == the JAX Pallas syrk on +-1 bf16 (exact in both)."""
+    import jax.numpy as jnp
+    from xmca_tpu.ops.syrk import syrk as jax_syrk
+    n, p = 1536, 1024
+    rng = np.random.default_rng(2)
+    X = rng.choice([-1.0, 1.0], size=(n, p)).astype(np.float32)
+    X[1400:] = 0.0
+    G_jax = np.asarray(jax_syrk(jnp.asarray(X, jnp.bfloat16),
+                                interpret=True))
+    G = syrk(torch.from_numpy(X).to(torch.bfloat16)).numpy()
+    np.testing.assert_array_equal(G, G_jax)
+
+
+def test_syrk_reference_int8_exact_beyond_pm1():
+    """int8 values up to 127 sum exactly (f64 products of int8 are exact)
+    and round to f32 like the kernel's int32 -> f32 store."""
+    rng = np.random.default_rng(3)
+    X = rng.integers(-127, 128, size=(128, 256)).astype(np.int8)
+    G = syrk_reference(torch.from_numpy(X)).numpy()
+    exact = X.astype(np.int64) @ X.astype(np.int64).T
+    np.testing.assert_array_equal(G, exact.astype(np.float32))
+
+
+@pytest.mark.parametrize('make, err', [
+    (lambda: torch.zeros((128, 128), dtype=torch.float32), TypeError),
+    (lambda: torch.zeros(128, dtype=torch.int8), TypeError),
+    (lambda: torch.zeros((128, 256), dtype=torch.int8)[:, ::2], ValueError),
+    (lambda: torch.zeros((100, 128), dtype=torch.int8), ValueError),
+    (lambda: torch.zeros((128, 100), dtype=torch.bfloat16), ValueError),
+    (lambda: torch.zeros((128, 133248), dtype=torch.int8), ValueError),
+])
+def test_syrk_refusals(make, err):
+    """Wrong dtype or rank, non-contiguous, unpadded, and int8 whose
+    worst case p_pad * 127^2 reaches 2^31 without pm1=True."""
+    with pytest.raises(err):
+        syrk(make())
+
+
+def test_syrk_pm1_lifts_overflow_guard():
+    X = torch.zeros((128, 133248), dtype=torch.int8)
+    assert syrk(X, pm1=True).shape == (128, 128)
+
+
+def test_sign_field_sums_refuses_unpadded():
+    with pytest.raises(ValueError):
+        sign_field_sums(1, 100, 100, 100, 128, 'cpu')
+    with pytest.raises(ValueError):
+        sign_field_sums(1, 200, 100, 128, 128, 'cpu')
+
+
+def test_cpu_wrappers_launch_nothing():
+    """On CPU tensors the wrappers take the plain versions: no launch is
+    counted and no kernel library is built."""
+    _build.reset_launch_counts()
+    X, _ = sign_field_sums(4, 100, 300, *pad_to(100, 300), 'cpu')
+    syrk(X, pm1=True)
+    assert _build.launch_counts() == {}
+    assert _build._state['lib'] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n, p', [(128, 128), (200, 3000), (1000, 4100)])
+def test_syrk_kernel_matches_plain_int8(cuda_device, n, p):
+    n_pad, p_pad = pad_to(n, p)
+    X, _ = sign_field_sums(9, n, p, n_pad, p_pad, cuda_device)
+    G = syrk(X, pm1=True)
+    torch.cuda.synchronize()
+    assert torch.equal(G, syrk_reference(X))
+
+
+@pytest.mark.cuda
+def test_syrk_kernel_matches_plain_bf16(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    X = torch.randn((384, 1024), generator=gen, device=cuda_device)
+    X = X.to(torch.bfloat16)
+    G = syrk(X)
+    ref = syrk_reference(X)
+    torch.cuda.synchronize()
+    # f32 sums of 1024 products in another order: ~1e-6 relative
+    assert torch.allclose(G, ref, rtol=1e-5, atol=1e-3)
+    assert torch.equal(G, G.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n, p', [(128, 128), (200, 3000), (2000, 5000)])
+def test_sign_field_kernel_matches_plain(cuda_device, n, p):
+    n_pad, p_pad = pad_to(n, p)
+    X, s = sign_field_sums(21, n, p, n_pad, p_pad, cuda_device)
+    Xr, sr = sign_field_sums_reference(21, n, p, n_pad, p_pad, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(X, Xr) and torch.equal(s, sr)

@@ -1,0 +1,339 @@
+"""Matmul-only truncated solve and Rule-N surrogate pipeline on tensors.
+
+Counterpart of ``xmca_tpu/core/fastpath.py``.  The algebra is the same:
+for centered fields ``A (n, p_l)``, ``B (n, p_r)`` with ``n <= p`` the
+singular values of ``A^H B`` are those of ``M = La^H Lb / dof`` with
+``La = chol(A A^H)``, ``Lb = chol(B B^H)``; the leading triplets of the
+n x n kernel ``M`` come from a subspace iteration, the spectrum total
+from a Newton-Schulz nuclear norm, and the spatial vectors from
+``V = X^H (L^-H U)``.  A complexified solve never builds ``Z = X + iHX``:
+its Gram is folded from the real one (:func:`_analytic_fold`).
+
+Precision: every n x n product runs at the operands' own precision (f32
+on the card with TF32 off, f64 in the CPU tests).  The JAX package's
+3-pass ``HIGH`` tier (``_dot_high``) and ``grade='fast'``'s single-pass
+bf16 n x n dot both become f32 here, which is more accurate; the
+surrogate back-projection ``X^T S`` runs in f32 as well (a +-1 field is
+exact in f32, and the product is ~1e-2 of the Gram's work).
+
+Random start blocks are arguments (``omega``): the caller draws them from
+an explicit ``torch.Generator``, and tests inject the JAX package's own.
+"""
+import functools
+
+import numpy as np
+import torch
+
+from xmca_tpu_torch.core.linalg import (ns_polar_iterate_scaled,
+                                        ns_polar_schedule)
+from xmca_tpu_torch.core.preprocess import _analytic_weights
+
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def _real_dtype(dtype):
+    return torch.empty((), dtype=dtype).real.dtype
+
+
+def _complex_dtype(real_dtype):
+    return torch.complex128 if real_dtype == torch.float64 \
+        else torch.complex64
+
+
+def _eps(dtype):
+    return float(torch.finfo(_real_dtype(dtype)).eps)
+
+
+def _jitter(G, p, jitter_rel, input_eps=None):
+    """Add the rank-deficiency jitter to a (possibly complex) Gram.
+
+    ``delta = max(rel_floor * mean(diag), 50 eps ||G||_F)`` with
+    ``rel_floor = max(jitter_rel, 8 eps sqrt(p), 0.5 input_eps)``; stays a
+    device tensor (no host read).
+    """
+    d = torch.mean(torch.real(torch.diagonal(G)))
+    eps = _eps(G.dtype)
+    rel_floor = max(jitter_rel, 8.0 * eps * float(np.sqrt(p)))
+    if input_eps is not None:
+        rel_floor = max(rel_floor, 0.5 * float(input_eps))
+    delta = torch.maximum(rel_floor * d,
+                          (50.0 * eps) * torch.linalg.norm(G))
+    eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+    return G + delta * eye
+
+
+@functools.lru_cache(maxsize=8)
+def hilbert_imag_matrix(n, dtype=np.float64):
+    """The real n x n matrix H with ``analytic(x) = x + i H x``.
+
+    Built on the host from float64 FFTs and cached per (n, dtype); the
+    returned array is read-only because the cache shares it.
+    """
+    h = _analytic_weights(int(n), np.float64)
+    F = np.fft.fft(np.eye(int(n)), axis=0)
+    A = np.fft.ifft(h[:, None] * F, axis=0)
+    H = np.ascontiguousarray(A.imag.astype(dtype))
+    H.flags.writeable = False
+    return H
+
+
+def _analytic_fold(G, H):
+    """``G_Z = (G + H G H^T) + i (H G - G H^T)`` from a real symmetric G."""
+    HG = H @ G
+    real = G + HG @ H.T
+    imag = HG - HG.T
+    return torch.complex(real, imag)
+
+
+def analytic_temporal_gram(X, H, jitter_rel=1e-6):
+    """Jittered temporal Gram of ``analytic(X)`` from real ``X``."""
+    G = X @ X.T
+    GZ = _analytic_fold(G, H)
+    return _jitter(GZ, X.shape[1], jitter_rel, input_eps=_eps(X.dtype))
+
+
+def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
+    """Chol-reduced kernel of the complexified fields, ``(M, La, Lb)``."""
+    dof = Xl.shape[0] - 1
+    La = torch.linalg.cholesky(analytic_temporal_gram(Xl, H, jitter_rel))
+    Lb = torch.linalg.cholesky(analytic_temporal_gram(Xr, H, jitter_rel))
+    return (La.mH @ Lb) / dof, La, Lb
+
+
+def temporal_gram(X, jitter_rel=1e-6):
+    """Jittered temporal Gram ``X X^H + eps I``."""
+    G = X @ X.mH
+    return _jitter(G, X.shape[1], jitter_rel, input_eps=_eps(X.dtype))
+
+
+def reduced_kernel(Xl, Xr, jitter_rel=1e-6):
+    """n x n matrix with the singular values of ``Xl^H Xr / dof``."""
+    dof = Xl.shape[0] - 1
+    La = torch.linalg.cholesky(temporal_gram(Xl, jitter_rel))
+    Lb = torch.linalg.cholesky(temporal_gram(Xr, jitter_rel))
+    return (La.mH @ Lb) / dof, La, Lb
+
+
+def _orthonormalize(Y, method='qr'):
+    """Orthonormal basis of the thin block ``Y``: Householder QR
+    (``'qr'``) or two rounds of Cholesky-QR (``'cholqr2'``)."""
+    if method == 'qr':
+        return torch.linalg.qr(Y).Q
+    if method != 'cholqr2':
+        raise ValueError("orth must be 'qr' or 'cholqr2'")
+
+    def one_round(Y):
+        G = Y.mH @ Y
+        d = torch.mean(torch.real(torch.diagonal(G)))
+        eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+        R = torch.linalg.cholesky(G + (8.0 * _eps(G.dtype)) * d * eye)
+        Rinv = torch.linalg.solve_triangular(R, eye, upper=False)
+        return Y @ Rinv.mH
+
+    return one_round(one_round(Y))
+
+
+def start_block(m, k, dtype, generator):
+    """Gaussian start block ``(m, min(k + 16, m))`` of
+    :func:`subspace_svd` for a square ``(m, m)`` kernel (16 oversampling
+    columns), drawn from ``generator`` on its device."""
+    kk = min(k + 16, m)
+    real = _real_dtype(dtype)
+    omega = torch.randn((m, kk), generator=generator, dtype=real,
+                        device=generator.device)
+    return omega.to(dtype)
+
+
+def subspace_svd(M, omega, k, n_iter=8, orth='qr'):
+    """Leading-k singular triplets of square ``M`` by subspace iteration
+    from the start block ``omega (m, kk)``; returns ``(U, s, V)``."""
+    Q = _orthonormalize(M @ omega.to(M.dtype), orth)
+    for _ in range(n_iter):
+        Q = _orthonormalize(M @ (M.mH @ Q), orth)
+    B = Q.mH @ M
+    w, W = torch.linalg.eigh(B @ B.mH)
+    w = torch.flip(w, (-1,))
+    W = torch.flip(W, (-1,))
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    U = Q @ W
+    safe = torch.where(s > 0, s, torch.ones_like(s)).to(M.dtype)
+    V = M.mH @ (U / safe[None, :])
+    return U[:, :k], s[:k], V[:, :k]
+
+
+# host constants of (l0, tol): the exact schedule converges
+# sigma_min/fro = 1e-9 to 1e-8, the surrogate schedule stops at 1e-4
+_NS_SCALES_EXACT = tuple(ns_polar_schedule(l0=1e-9, tol=1e-8))
+_NS_SCALES_SURR = tuple(ns_polar_schedule(l0=1e-7, tol=1e-4))
+
+
+def nuclear_norm(M):
+    """``sum(svals(M))`` via the scaled Newton-Schulz polar iteration
+    (exact schedule, every step at the operands' precision)."""
+    W = ns_polar_iterate_scaled(M, _NS_SCALES_EXACT)
+    return torch.real(torch.trace(W.mH @ M))
+
+
+def nuclear_norm_surrogate(M):
+    """Nuclear norm on the 1e-4 schedule, for per-surrogate totals."""
+    W = ns_polar_iterate_scaled(M, _NS_SCALES_SURR)
+    return torch.real(torch.trace(W.mH @ M))
+
+
+def _kernel_svd_recovery(M, La, Lb, omega, n_modes, n_iter):
+    """Subspace SVD of the reduced kernel + triangular recovery of the
+    temporal weight stacks ``Z = L^-H U``."""
+    U, s, V = subspace_svd(M, omega, k=n_modes, n_iter=n_iter)
+    Zl = torch.linalg.solve_triangular(La.mH, U, upper=True)
+    Zr = torch.linalg.solve_triangular(Lb.mH, V, upper=True)
+    return s, Zl, Zr
+
+
+def analytic_projection_stack(T, H):
+    """Real (n, 2k) stack ``[Re S, Im S]`` of ``S = T - i H^T T``, so
+    ``Z^H T = X^T S`` for ``Z = (I + iH) X`` runs as ONE real product."""
+    Ht = H.T.to(T.real.dtype)
+    HtT = torch.complex(Ht @ T.real, Ht @ T.imag)
+    S = T - 1j * HtT
+    return torch.cat([S.real, S.imag], dim=1)
+
+
+def combine_analytic_projection(P):
+    """Inverse of the :func:`analytic_projection_stack` split."""
+    k = P.shape[1] // 2
+    return torch.complex(P[:, :k], P[:, k:])
+
+
+def _analytic_spatial_vectors(X, H, T):
+    """``V = Z^H T`` for ``Z = (I + iH) X`` without materializing Z."""
+    return combine_analytic_projection(X.T @ analytic_projection_stack(T, H))
+
+
+def fast_solve_truncated_totals(Xl, Xr, omega, n_modes, n_iter=8,
+                                jitter_rel=1e-6):
+    """Leading-n_modes solve + exact totals:
+    ``(s, V_left, V_right, total_cov, total_sq)``."""
+    M, La, Lb = reduced_kernel(Xl, Xr, jitter_rel)
+    s, Zl, Zr = _kernel_svd_recovery(M, La, Lb, omega, n_modes, n_iter)
+    return (s, Xl.mH @ Zl, Xr.mH @ Zr, nuclear_norm(M),
+            torch.sum(torch.abs(M) ** 2))
+
+
+def fast_solve_truncated_totals_analytic(Xl, Xr, H, omega, n_modes,
+                                         n_iter=8, jitter_rel=1e-6):
+    """Truncated solve of the COMPLEXIFIED fields from real data (the
+    analytic fold); same contract as :func:`fast_solve_truncated_totals`
+    applied to ``analytic(Xl), analytic(Xr)``."""
+    M, La, Lb = analytic_reduced_kernel(Xl, Xr, H, jitter_rel)
+    s, Zl, Zr = _kernel_svd_recovery(M, La, Lb, omega, n_modes, n_iter)
+    return (s, _analytic_spatial_vectors(Xl, H, Zl),
+            _analytic_spatial_vectors(Xr, H, Zr), nuclear_norm(M),
+            torch.sum(torch.abs(M) ** 2))
+
+
+def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
+                                complexify=False, rotated=False, n_rot=10,
+                                power=1, tol=1e-8, n_iter=8,
+                                jitter_rel=1e-6, polar_method='ns',
+                                grade='exact', fields=None):
+    """One Rule-N surrogate solve on +-1 fields with the triangle Gram.
+
+    Per field (seed ``2 * seed + i`` mod 2^32): the draw kernel writes a
+    padded, masked +-1 int8 field and its column sums
+    (:func:`xmca_tpu_torch.ops.surrogate.sign_field_sums`), the syrk
+    kernel forms the raw Gram, centering comes from the Gram alone
+    (``w = G 1 / n``, ``mu.mu = 1^T G 1 / n^2``), then the analytic fold,
+    the jitter, Cholesky, the reduced kernel and the subspace SVD.  The
+    rotated variant back-projects the loadings (``X^T S``, f32) and runs
+    promax in the space :func:`ensemble_space` picks.
+
+    ``grade='fast'`` keeps the JAX package's 2e-3 jitter floor; its n x n
+    products stay f32.  ``omega`` is the subspace start block (on the
+    device the run uses).  ``fields`` (tests only) injects pre-drawn
+    padded int8 fields with zero pads, one per field, instead of drawing.
+
+    Returns ``(variance, total, converged, n_iter_rot)``; the last is the
+    rotation's iteration count (0 when not rotated).
+    """
+    from xmca_tpu_torch.core.rotation import ensemble_space, promax
+    from xmca_tpu_torch.ops.surrogate import sign_field_sums
+    from xmca_tpu_torch.ops.syrk import pad_to, syrk
+
+    device = omega.device
+    bivariate = len(n_vars) == 2
+    if grade == 'fast':
+        jitter_rel = max(jitter_rel, 2e-3)
+    elif grade != 'exact':
+        raise ValueError("grade must be 'exact' or 'fast'")
+    if complexify:
+        H = H.to(device=device, dtype=torch.float32)
+
+    def field_gram(i, p):
+        n_pad, p_pad = pad_to(n_obs, p)
+        if fields is None:
+            X, colsum = sign_field_sums((2 * int(seed) + i) & 0xFFFFFFFF,
+                                        n_obs, p, n_pad, p_pad, device)
+        else:
+            X = fields[i]
+            if tuple(X.shape) != (n_pad, p_pad) or X.dtype != torch.int8:
+                raise ValueError('injected field {} must be int8 {}'
+                                 .format(i, (n_pad, p_pad)))
+            colsum = X.sum(dim=0, dtype=torch.int32)
+        G = syrk(X, pm1=True)[:n_obs, :n_obs]
+        mu = colsum.to(torch.float32) / n_obs
+        w = torch.sum(G, dim=1) / n_obs
+        Gc = G - w[:, None] - w[None, :] + torch.sum(w) / n_obs
+        Gz = _analytic_fold(Gc, H) if complexify else Gc
+        return _jitter(Gz, p, jitter_rel, input_eps=_F32_EPS), mu, X
+
+    Gl, mu_l, X_l = field_gram(0, n_vars[0])
+    if bivariate:
+        Gr, mu_r, X_r = field_gram(1, n_vars[1])
+    else:
+        Gr, mu_r, X_r = Gl, mu_l, X_l
+
+    dof = n_obs - 1
+    La = torch.linalg.cholesky(Gl)
+    Lb = torch.linalg.cholesky(Gr) if bivariate else La
+    M = (La.mH @ Lb) / dof
+
+    if not rotated:
+        _, s, _ = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
+        return (s, nuclear_norm_surrogate(M),
+                bool(torch.isfinite(s).all()), 0)
+
+    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
+
+    def spatial(X, mu, p, L_chol, T_side):
+        T = torch.linalg.solve_triangular(L_chol.mH, T_side, upper=True)
+        if complexify:
+            S = analytic_projection_stack(T, H).to(torch.float32)
+        else:
+            S = T.real.to(torch.float32)
+        S_pad = torch.zeros((X.shape[0], S.shape[1]), dtype=torch.float32,
+                            device=device)
+        S_pad[:n_obs] = S
+        P = (S_pad.T @ X.to(torch.float32)).T[:p]
+        P = P - mu[:p, None] * torch.sum(S, dim=0)[None, :]
+        return combine_analytic_projection(P) if complexify else P
+
+    Vl = spatial(X_l, mu_l, n_vars[0], La, U)
+    sqrt_s = torch.sqrt(s).to(Vl.dtype)
+    if bivariate:
+        Vr = spatial(X_r, mu_r, n_vars[1], Lb, V)
+        L = torch.cat([Vl, Vr], dim=0) * sqrt_s[None, :]
+    else:
+        L = Vl * sqrt_s[None, :]
+    n_vars_left = Vl.shape[0]
+    L_rot, _, _, converged, n_it = promax(
+        L, power=power, tol=tol, polar_method=polar_method,
+        space=ensemble_space(L.shape[0], L.shape[1], L.element_size()),
+    )
+    norm_left = torch.linalg.norm(L_rot[:n_vars_left], dim=0)
+    if bivariate:
+        variance = norm_left * torch.linalg.norm(L_rot[n_vars_left:], dim=0)
+    else:
+        variance = norm_left ** 2
+    variance = torch.sort(variance, descending=True).values
+    converged = converged and bool(torch.isfinite(variance).all())
+    return variance, torch.sum(variance), converged, n_it

@@ -1,0 +1,105 @@
+"""Polar factors and Newton-Schulz iterations on torch tensors.
+
+Counterpart of ``xmca_tpu/core/linalg.py:147-308``.  Every matmul here is
+a plain ``@`` at the tensors' own precision: float32 on the card runs in
+full f32 (PyTorch's default, TF32 off), which is at least as accurate as
+the JAX package's ``HIGHEST`` tier, and there is no counterpart of its
+3-pass ``HIGH`` tier.
+"""
+import torch
+
+__all__ = ['ns_polar_schedule', 'ns_polar_apply', 'ns_polar_iterate',
+           'ns_polar_iterate_scaled', 'unitary_polar_factor']
+
+
+def ns_polar_schedule(l0=1e-9, tol=1e-7, max_steps=64):
+    """Greedy minimax scale schedule for the SCALED cubic NS iteration.
+
+    One cubic step maps a singular value ``x`` to ``f(s x)`` with
+    ``f(y) = 1.5 y - 0.5 y^3``; ``s = sqrt(3 / (u^2 + u l + l^2))`` is the
+    per-step minimax choice over the spectrum interval ``[l, u]``.
+    Returns the host-side scale list reaching ``min sval >= 1 - tol`` from
+    a worst-case ``sigma_min / ||.||_F >= l0`` (host copy of the JAX
+    package's schedule, same numbers).
+    """
+    scales, l, u = [], float(l0), 1.0
+    for _ in range(max_steps):
+        if l >= 1.0 - tol:
+            break
+        s = (3.0 / (u * u + u * l + l * l)) ** 0.5
+        scales.append(s)
+
+        def f(y):
+            return 1.5 * y - 0.5 * y ** 3
+
+        fl, fu = f(s * l), f(s * u)
+        l = min(fl, fu)
+        u = 1.0 if s * u >= 1.0 else max(fl, fu)
+    return scales
+
+
+def _prescale(A):
+    """``A / ||A||_F``, zero-safe (a zero matrix stays zero)."""
+    fro = torch.linalg.norm(A)
+    return A / torch.where(fro == 0, torch.ones_like(fro), fro)
+
+
+def ns_polar_apply(W, scales):
+    """Scaled NS steps ``W <- 1.5 s W - 0.5 s^3 W (W^H W)`` on an
+    already-prescaled iterate."""
+    for s in scales:
+        W = (1.5 * s) * W - (0.5 * s ** 3) * (W @ (W.mH @ W))
+    return W
+
+
+def ns_polar_iterate(A, n_steps):
+    """Fixed-count unscaled Newton-Schulz polar iterate of ``A``."""
+    W = _prescale(A)
+    for _ in range(n_steps):
+        W = 1.5 * W - 0.5 * (W @ (W.mH @ W))
+    return W
+
+
+def ns_polar_iterate_scaled(A, scales):
+    """Scaled Newton-Schulz polar iterate with a precomputed schedule."""
+    return ns_polar_apply(_prescale(A), scales)
+
+
+def _trace_real(W, A):
+    return torch.real(torch.trace(W.mH @ A))
+
+
+def unitary_polar_factor(A, method='svd'):
+    """Unitary polar factor of ``A`` plus its nuclear norm, ``(W, d)``.
+
+    ``'svd'``: exact, ``U V^H`` and ``sum(s)`` from a dense SVD.
+    ``'ns'``: 30 unscaled Newton-Schulz steps; ``'ns<k>'``: k steps (for
+    well-conditioned noise criteria).  ``'ns-gated'``: iterate on the
+    orthogonality defect ``||W^H W - I||_F`` until it drops below
+    ``10 k eps`` or 80 steps; the defect is read on the host once per
+    step, like the JAX ``while_loop``'s condition.
+    """
+    if method.startswith('ns') and method[2:].isdigit():
+        W = ns_polar_iterate(A, int(method[2:]))
+        return W, _trace_real(W, A)
+    if method == 'ns':
+        W = ns_polar_iterate(A, 30)
+        return W, _trace_real(W, A)
+    if method == 'ns-gated':
+        W = _prescale(A)
+        k = A.shape[-1]
+        eye = torch.eye(k, dtype=A.dtype, device=A.device)
+        defect_tol = 10.0 * k * torch.finfo(A.dtype).eps
+        i, defect = 0, float('inf')
+        while i < 80 and defect > defect_tol:
+            H = W.mH @ W
+            defect = float(torch.linalg.norm(H - eye))
+            W = 1.5 * W - 0.5 * (W @ H)
+            i += 1
+        return W, _trace_real(W, A)
+    if method == 'svd':
+        u, s, vh = torch.linalg.svd(A)
+        return u @ vh, torch.sum(s)
+    raise NotImplementedError(
+        'polar method {!r} is not ported (svd, ns, ns<k>, ns-gated are)'
+        .format(method))

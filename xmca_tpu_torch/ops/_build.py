@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels (``xmca_tpu_torch/csrc/*.cu``).
+
+At first use every source is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, which is
+loaded with :mod:`ctypes`.  No PyTorch header is included, so the build
+takes seconds.  The library lands in ``build/xmca_tpu_torch/`` beside
+the package (the repository's ``build/`` directory, ignored by git) and
+is rebuilt whenever a source is newer than it.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.  There is no fallback: a kernel that does not build or does
+not launch raises.
+
+Wrappers count their launches in :data:`LAUNCHES` (name -> count), one
+per kernel launch and nowhere else, so a run can show which kernels its
+path went through.
+"""
+import collections
+import ctypes
+import glob
+import os
+import subprocess
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build',
+                         'xmca_tpu_torch')
+LIB_PATH = os.path.join(BUILD_DIR, 'libxmca_tpu_torch_kernels.so')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+LAUNCHES = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+# C signature of every entry point: (argtypes, restype int = cudaError_t)
+_SIGNATURES = {
+    'xmca_syrk': [_P, _P, _I, _I, _I, _P],
+    'xmca_sign_field_sums': [_P, _P, _I, _I, _I, _I, _U, _U, _P],
+}
+
+_state = {'lib': None, 'log': ''}
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu')))
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA '
+                           'toolkit that builds xmca_tpu_torch/csrc')
+    return os.path.join(CUDA_HOME, 'bin', 'nvcc')
+
+
+def build():
+    """Compile the kernels if the library is missing or stale; return
+    the compiler's log (``-Xptxas -v``: registers, shared memory and
+    spills per kernel), empty when nothing was rebuilt."""
+    srcs = sources()
+    if os.path.exists(LIB_PATH) and all(
+            os.path.getmtime(s) <= os.path.getmtime(LIB_PATH)
+            for s in srcs):
+        return ''
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = '{}.{}.tmp'.format(LIB_PATH, os.getpid())
+    cmd = [_nvcc()] + NVCC_FLAGS + ['-o', tmp] + srcs
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError('nvcc failed ({}):\n{}\n{}'.format(
+            ' '.join(cmd), proc.stdout, proc.stderr))
+    os.replace(tmp, LIB_PATH)          # atomic for concurrent builders
+    return proc.stdout + proc.stderr
+
+
+def library():
+    """The loaded kernel library (built at first use)."""
+    if _state['lib'] is None:
+        _state['log'] = build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _state['lib'] = lib
+    return _state['lib']
+
+
+def build_log():
+    """Compiler output of the build this process ran ('' if none)."""
+    return _state['log']
+
+
+def check(err, name):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        import torch
+        raise RuntimeError('{} launch failed: CUDA error {} ({})'.format(
+            name, err, torch.cuda.get_device_name()
+            if torch.cuda.is_available() else 'no device'))
+
+
+def stream_of(tensor):
+    """Raw handle of PyTorch's current stream on ``tensor``'s device."""
+    import torch
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def reset_launch_counts():
+    LAUNCHES.clear()
+
+
+def launch_counts():
+    return dict(LAUNCHES)
