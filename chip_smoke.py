@@ -12,7 +12,13 @@
    solve(complexify=True) -> rotate(10) -> rule_n(N_RUNS)``, with the
    kernels' launch counters reset just before and read just after;
 4. runs the same path at a small size on the card and on the CPU (the
-   plain versions, with the same random bits) and compares them.
+   plain versions, with the same random bits) and compares them;
+5. drives the generated Rule-N surrogate
+   (``core.fastpath.fast_surrogate_variance_gen``, fields generated
+   inside the Gram and projection kernels, never stored) for N_GEN seeds
+   at the same full width, with the counters reset just before and read
+   just after, against ``fast_surrogate_variance_tri`` over the same
+   seeds; then the same function small, on the card and on the CPU.
 
 Any failure exits non-zero; nothing is caught.  The last lines are the
 kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
@@ -26,7 +32,9 @@ import time
 N_OBS, N_LAT, N_LON = 2000, 250, 400       # the bench.py workload
 N_ROT = 10
 N_RUNS = 64          # of the workload's 1000 surrogates: cut for time only
+N_GEN = 32           # generated-surrogate runs: cut for time only
 SEED = 7
+ENSEMBLE = dict(power=1, tol=1e-4, n_iter=6, polar_method='ns14')
 
 
 def _fail(msg):
@@ -145,6 +153,201 @@ def check_sign_field(torch):
     return {'max_abs_err': errs[0], 'ms': ms, 'plain_ms': plain_ms}
 
 
+def check_surrogate_field(torch):
+    from xmca_tpu_torch.ops.surrogate import (GEN_DISTS, surrogate_field,
+                                              surrogate_field_reference)
+    shapes = [(N_OBS, N_LAT * N_LON), (96, 400), (200, 3000), (1000, 4100)]
+    for dist in GEN_DISTS:
+        for n, p in shapes:
+            X = surrogate_field(3, n, p, dist, 'cuda')
+            ref = surrogate_field_reference(3, n, p, dist, 'cuda')
+            torch.cuda.synchronize()
+            _check(X.dtype == ref.dtype and torch.equal(X, ref),
+                   'surrogate_field {} differs at {}'.format(dist, (n, p)))
+    X = surrogate_field(3, N_OBS, N_LAT * N_LON, 'normal32', 'cuda').double()
+    mean, var = float(X.mean()), float(X.var(unbiased=False))
+    m4 = float((X ** 4).mean())
+    del X
+    print('surrogate_field bit-equal to plain for {} at {}; normal32 at '
+          'full width: mean {:.2e}, var {:.6f}, 4th moment {:.4f} (3 - '
+          '1/16 = 2.9375)'.format(GEN_DISTS, shapes, mean, var, m4))
+    _check(abs(mean) < 5e-3 and abs(var - 1) < 5e-3
+           and abs(m4 - (3 - 1 / 16)) < 5e-2, 'normal32 moments off')
+    ms = _time_ms(torch, lambda: surrogate_field(
+        5, N_OBS, N_LAT * N_LON, 'normal32', 'cuda'), 20)
+    plain_ms = _time_ms(torch, lambda: surrogate_field_reference(
+        5, N_OBS, N_LAT * N_LON, 'normal32', 'cuda'), 3)
+    print('surrogate_field normal32 at {}: kernel {:.3f} ms, plain {:.3f} '
+          'ms'.format((N_OBS, N_LAT * N_LON), ms, plain_ms))
+    return {'max_abs_err': 0.0, 'ms': ms, 'plain_ms': plain_ms}
+
+
+def check_surrogate_gram(torch):
+    from xmca_tpu_torch.ops.surrogate import (surrogate_field,
+                                              surrogate_gram,
+                                              surrogate_gram_reference)
+    from xmca_tpu_torch.ops.syrk import pad_to, syrk
+    n, p = N_OBS, N_LAT * N_LON
+    G, mu, u, mumu = surrogate_gram(8, n, p, 'normal32', 'cuda')
+    Gr, mur, ur, mumur = surrogate_gram_reference(8, n, p, 'normal32',
+                                                  'cuda')
+    Xp = torch.zeros(pad_to(n, p), dtype=torch.bfloat16, device='cuda')
+    Xp[:n, :p] = surrogate_field(8, n, p, 'normal32', 'cuda')
+    Gs = syrk(Xp)[:n, :n]
+    torch.cuda.synchronize()
+    scale = float(Gr.abs().max())
+    err = float((G - Gr).abs().max())
+    err_syrk = float((G - Gs).abs().max()) / scale
+    err_mu = float((mu - mur).abs().max()) / float(mur.abs().max())
+    err_u = float((u - ur).abs().max()) / float(ur.abs().max())
+    err_mumu = abs(float(mumu - mumur)) / float(mumur)
+    print('surrogate_gram normal32 at {}: G rel err {:.2e} vs plain (f64), '
+          '{:.2e} vs syrk(surrogate_field) (tol 1e-4); mu {:.2e}, u {:.2e}, '
+          'mumu {:.2e} (tol 1e-5)'.format((n, p), err / scale, err_syrk,
+                                          err_mu, err_u, err_mumu))
+    _check(err / scale <= 1e-4 and err_syrk <= 1e-4,
+           'surrogate_gram G off')
+    _check(torch.equal(G, G.T), 'surrogate_gram G not symmetric')
+    _check(max(err_mu, err_u, err_mumu) <= 1e-5,
+           'surrogate_gram mu/u/mumu off')
+    Gi = surrogate_gram(8, n, p, 'rademacher', 'cuda')[0]
+    Gir = surrogate_gram_reference(8, n, p, 'rademacher', 'cuda')[0]
+    torch.cuda.synchronize()
+    _check(torch.equal(Gi, Gir), 'surrogate_gram rademacher not bit-equal')
+    print('surrogate_gram rademacher bit-equal to plain at {}'.format((n, p)))
+    del Gr, Gi, Gir
+
+    ms = _time_ms(torch, lambda: surrogate_gram(9, n, p, 'normal32',
+                                                'cuda'), 5)
+    plain_ms = _time_ms(torch, lambda: surrogate_gram_reference(
+        9, n, p, 'normal32', 'cuda'), 3)
+
+    def composite():
+        Xp[:n, :p] = surrogate_field(9, n, p, 'normal32', 'cuda')
+        return syrk(Xp)
+    comp_ms = _time_ms(torch, composite, 5)
+    print('surrogate_gram at {}: kernel {:.3f} ms, plain (f64 matmul) '
+          '{:.3f} ms, surrogate_field + pad copy + syrk bf16 {:.3f} ms'
+          .format((n, p), ms, plain_ms, comp_ms))
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+
+
+def check_surrogate_project(torch):
+    from xmca_tpu_torch.ops.surrogate import (surrogate_project,
+                                              surrogate_project_reference)
+    n, p, m = N_OBS, N_LAT * N_LON, 2 * N_ROT
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    S = torch.randn((n, m), generator=gen, device='cuda')
+    P = surrogate_project(10, S, n, p, 'normal32', 'cuda')
+    ref = surrogate_project_reference(10, S, n, p, 'normal32', 'cuda')
+    torch.cuda.synchronize()
+    err = float((P - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    _check(rel <= 1e-5, 'surrogate_project rel err {:.2e} > 1e-5'
+           .format(rel))
+    ms = _time_ms(torch, lambda: surrogate_project(
+        10, S, n, p, 'normal32', 'cuda'), 20)
+    plain_ms = _time_ms(torch, lambda: surrogate_project_reference(
+        10, S, n, p, 'normal32', 'cuda'), 3)
+    print('surrogate_project at {} x m={}: rel err {:.2e} (tol 1e-5); '
+          'kernel {:.3f} ms, plain (f64 matmul) {:.3f} ms'.format(
+              (n, p), m, rel, ms, plain_ms))
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+
+
+def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
+    """``n_runs`` Rule-N surrogate solves with the run seeds and start
+    blocks of ``stats.significance``; returns (variances of the kept
+    runs (numpy), totals, number kept, seconds per run)."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import hilbert_imag_matrix, start_block
+    from xmca_tpu_torch.stats.significance import run_seeds
+    H = torch.tensor(hilbert_imag_matrix(n_obs, np.float32), device=device)
+    out, totals = [], []
+    t0 = time.perf_counter()
+    for s in run_seeds(SEED, n_runs):
+        gen = torch.Generator(device='cpu').manual_seed(s)
+        omega = start_block(n_obs, kw['n_rot'], torch.complex64,
+                            gen).to(device)
+        var, total, conv, _ = fn(s, omega, n_obs, n_vars, H=H,
+                                 complexify=True, **kw)
+        if conv:
+            out.append(var)
+            totals.append(total)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_runs
+    if not out:
+        return np.zeros((0, kw['n_rot'])), np.zeros(0), 0, wall
+    return (torch.stack(out).cpu().numpy(), torch.stack(totals).cpu().numpy(),
+            len(out), wall)
+
+
+def gen_path(torch):
+    """The generated surrogate at full width against the +-1 one."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import (fast_surrogate_variance_gen,
+                                              fast_surrogate_variance_tri)
+    from xmca_tpu_torch.ops import _build
+    n_vars = (N_LAT * N_LON, N_LAT * N_LON)
+    _build.reset_launch_counts()
+    var_g, _, kept, wall_g = gen_runs(
+        torch, fast_surrogate_variance_gen, N_OBS, n_vars, N_GEN, 'cuda',
+        rotated=True, n_rot=N_ROT, **ENSEMBLE)
+    launches = _build.launch_counts()
+    var_t, _, kept_t, wall_t = gen_runs(
+        torch, fast_surrogate_variance_tri, N_OBS, n_vars, N_GEN, 'cuda',
+        rotated=True, n_rot=N_ROT, **ENSEMBLE)
+    g, t = np.median(var_g[:, 0]), np.median(var_t[:, 0])
+    spread = var_g[:, 0].std() + var_t[:, 0].std()
+    print('generated Rule-N at {} x 2 x {}, N={}: {:.4f} s/run ({} kept); '
+          'the +-1 path over the same seeds {:.4f} s/run ({} kept); '
+          'launches {}'.format(N_OBS, n_vars[0], N_GEN, wall_g, kept,
+                               wall_t, kept_t, launches))
+    print('leading null variance median: generated {:.2f}, +-1 {:.2f}, '
+          'combined spread {:.2f} (tol 2x)'.format(g, t, spread))
+    _check(launches.get('surrogate_gram', 0) == 2 * N_GEN
+           and launches.get('surrogate_project', 0) == 2 * N_GEN,
+           'generated path launched {}'.format(launches))
+    _check('surrogate_field' not in launches,
+           'the generated path stored a field')
+    _check(kept >= 0.9 * N_GEN, 'kept {} of {} runs'.format(kept, N_GEN))
+    _check(np.isfinite(var_g).all(), 'non-finite generated variances')
+    _check(abs(g - t) < 2.0 * spread,
+           'generated and +-1 nulls disagree: {:.2f} vs {:.2f}'.format(g, t))
+    return launches
+
+
+def gen_small(torch):
+    """The generated surrogate small, on the card (kernels) and on the
+    CPU (plain versions): the same bits on both sides.  The rotation
+    runs to the f32 floor (tol 1e-8 clamps to 100 eps), where its fixed
+    point is defined; at 1e-4 it stops on a plateau that f32 differences
+    in the loadings move."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import fast_surrogate_variance_gen
+    n_obs, n_vars = 256, (512, 384)
+    res = {}
+    for device in ('cuda', 'cpu'):
+        for rotated in (True, False):
+            kw = dict(ENSEMBLE, tol=1e-8) if rotated else ENSEMBLE
+            res[device, rotated] = gen_runs(
+                torch, fast_surrogate_variance_gen, n_obs, n_vars, 4,
+                device, rotated=rotated, n_rot=4, **kw)
+    for rotated in (True, False):
+        _check(res['cuda', rotated][2] == 4 and res['cpu', rotated][2] == 4,
+               'small generated path dropped a run')
+    var_err = np.max(np.abs(res['cuda', True][0] / res['cpu', True][0] - 1))
+    tot_err = np.max(np.abs(res['cuda', True][1] / res['cpu', True][1] - 1))
+    sv_err = np.max(np.abs(res['cuda', False][0] / res['cpu', False][0] - 1))
+    print('small generated path card vs CPU at {} x {}: rotated variance '
+          'rel {:.2e}, totals rel {:.2e} (tol 1e-3); unrotated spectrum rel '
+          '{:.2e} (tol 1e-4)'.format(n_obs, n_vars, var_err, tot_err,
+                                      sv_err))
+    _check(var_err <= 1e-3 and tot_err <= 1e-3 and sv_err <= 1e-4,
+           'card and CPU disagree on the small generated path')
+
+
 def make_fields(n_obs, n_lat, n_lon, seed0=1):
     """Two synthetic f32 fields with red spectra, as bench.py makes them."""
     import numpy as np
@@ -215,6 +418,9 @@ def main():
 
     k1 = check_syrk(torch)
     k2 = check_sign_field(torch)
+    k5 = check_surrogate_field(torch)
+    k3 = check_surrogate_gram(torch)
+    k4 = check_surrogate_project(torch)
 
     left, right = make_fields(N_OBS, N_LAT, N_LON)
     torch.cuda.synchronize()
@@ -267,6 +473,9 @@ def main():
     _check(sv_err <= 1e-4 and var_err <= 1e-3 and q_err <= 2e-2,
            'card and CPU disagree on the small path')
 
+    gen_launches = gen_path(torch)
+    gen_small(torch)
+
     kernels = [
         dict(name='syrk', route='cuda', source='xmca_tpu_torch/csrc/syrk.cu',
              replaces='xmca_tpu/ops/syrk.py:95',
@@ -275,6 +484,19 @@ def main():
              source='xmca_tpu_torch/csrc/sign_field.cu',
              replaces='xmca_tpu/ops/surrogate.py:403',
              launches=launches['sign_field_sums'], **k2),
+        dict(name='surrogate_gram', route='cuda',
+             source='xmca_tpu_torch/csrc/surrogate_gram.cu',
+             replaces='xmca_tpu/ops/surrogate.py:177',
+             launches=gen_launches['surrogate_gram'], **k3),
+        dict(name='surrogate_project', route='cuda',
+             source='xmca_tpu_torch/csrc/surrogate_project.cu',
+             replaces='xmca_tpu/ops/surrogate.py:259',
+             launches=gen_launches['surrogate_project'], **k4),
+        # the oracle of the two above: no path stores the field
+        dict(name='surrogate_field', route='cuda',
+             source='xmca_tpu_torch/csrc/surrogate_field.cu',
+             replaces='xmca_tpu/ops/surrogate.py:464',
+             launches=gen_launches.get('surrogate_field', 0), **k5),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -13,8 +13,10 @@ Precision: every n x n product runs at the operands' own precision (f32
 on the card with TF32 off, f64 in the CPU tests).  The JAX package's
 3-pass ``HIGH`` tier (``_dot_high``) and ``grade='fast'``'s single-pass
 bf16 n x n dot both become f32 here, which is more accurate; the
-surrogate back-projection ``X^T S`` runs in f32 as well (a +-1 field is
-exact in f32, and the product is ~1e-2 of the Gram's work).
++-1 surrogate back-projection ``X^T S`` runs in f32 as well (a +-1 field
+is exact in f32, and the product is ~1e-2 of the Gram's work).  The
+generated surrogate's kernels round ``S`` to bf16 and sum in f32, as the
+JAX package's kernels do.
 
 Random start blocks are arguments (``omega``): the caller draws them from
 an explicit ``torch.Generator``, and tests inject the JAX package's own.
@@ -231,6 +233,73 @@ def fast_solve_truncated_totals_analytic(Xl, Xr, H, omega, n_modes,
             torch.sum(torch.abs(M) ** 2))
 
 
+def _fold_jitter(Gc, p, H, complexify, jitter_rel):
+    """Analytic fold (when complexified) and jitter of a centered
+    surrogate Gram accumulated from f32-exact draws."""
+    Gz = _analytic_fold(Gc, H) if complexify else Gc
+    return _jitter(Gz, p, jitter_rel, input_eps=_F32_EPS)
+
+
+def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, complexify,
+                        rotated, omega, n_rot, power, tol, n_iter,
+                        polar_method):
+    """The n x n tail of one Rule-N surrogate solve, shared by the +-1
+    and the generated pipelines.
+
+    ``grams[i]`` is field i's jittered (folded) Gram, ``mus[i]`` its
+    column means (p_i,), and ``project(i, S)`` returns ``X_i^T S``
+    (p_i, m) f32 for the raw field i.  Cholesky, the reduced kernel and
+    the subspace SVD; unrotated, the spectrum and its NS nuclear-norm
+    total; rotated, the centered back-projection of the loadings and
+    promax in the space :func:`ensemble_space` picks.  Returns
+    ``(variance, total, converged, n_iter_rot)``.
+    """
+    from xmca_tpu_torch.core.rotation import ensemble_space, promax
+
+    bivariate = len(n_vars) == 2
+    dof = n_obs - 1
+    La = torch.linalg.cholesky(grams[0])
+    Lb = torch.linalg.cholesky(grams[1]) if bivariate else La
+    M = (La.mH @ Lb) / dof
+
+    if not rotated:
+        _, s, _ = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
+        return (s, nuclear_norm_surrogate(M),
+                bool(torch.isfinite(s).all()), 0)
+
+    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
+
+    def spatial(i, L_chol, T_side):
+        T = torch.linalg.solve_triangular(L_chol.mH, T_side, upper=True)
+        if complexify:
+            S = analytic_projection_stack(T, H).to(torch.float32)
+        else:
+            S = T.real.to(torch.float32)
+        P = project(i, S) - mus[i][:, None] * torch.sum(S, dim=0)[None, :]
+        return combine_analytic_projection(P) if complexify else P
+
+    Vl = spatial(0, La, U)
+    sqrt_s = torch.sqrt(s).to(Vl.dtype)
+    if bivariate:
+        Vr = spatial(1, Lb, V)
+        L = torch.cat([Vl, Vr], dim=0) * sqrt_s[None, :]
+    else:
+        L = Vl * sqrt_s[None, :]
+    n_vars_left = Vl.shape[0]
+    L_rot, _, _, converged, n_it = promax(
+        L, power=power, tol=tol, polar_method=polar_method,
+        space=ensemble_space(L.shape[0], L.shape[1], L.element_size()),
+    )
+    norm_left = torch.linalg.norm(L_rot[:n_vars_left], dim=0)
+    if bivariate:
+        variance = norm_left * torch.linalg.norm(L_rot[n_vars_left:], dim=0)
+    else:
+        variance = norm_left ** 2
+    variance = torch.sort(variance, descending=True).values
+    converged = converged and bool(torch.isfinite(variance).all())
+    return variance, torch.sum(variance), converged, n_it
+
+
 def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
                                 complexify=False, rotated=False, n_rot=10,
                                 power=1, tol=1e-8, n_iter=8,
@@ -255,12 +324,10 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
     Returns ``(variance, total, converged, n_iter_rot)``; the last is the
     rotation's iteration count (0 when not rotated).
     """
-    from xmca_tpu_torch.core.rotation import ensemble_space, promax
     from xmca_tpu_torch.ops.surrogate import sign_field_sums
     from xmca_tpu_torch.ops.syrk import pad_to, syrk
 
     device = omega.device
-    bivariate = len(n_vars) == 2
     if grade == 'fast':
         jitter_rel = max(jitter_rel, 2e-3)
     elif grade != 'exact':
@@ -268,7 +335,8 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
     if complexify:
         H = H.to(device=device, dtype=torch.float32)
 
-    def field_gram(i, p):
+    grams, mus, Xs = [], [], []
+    for i, p in enumerate(n_vars):
         n_pad, p_pad = pad_to(n_obs, p)
         if fields is None:
             X, colsum = sign_field_sums((2 * int(seed) + i) & 0xFFFFFFFF,
@@ -280,60 +348,80 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
                                  .format(i, (n_pad, p_pad)))
             colsum = X.sum(dim=0, dtype=torch.int32)
         G = syrk(X, pm1=True)[:n_obs, :n_obs]
-        mu = colsum.to(torch.float32) / n_obs
         w = torch.sum(G, dim=1) / n_obs
         Gc = G - w[:, None] - w[None, :] + torch.sum(w) / n_obs
-        Gz = _analytic_fold(Gc, H) if complexify else Gc
-        return _jitter(Gz, p, jitter_rel, input_eps=_F32_EPS), mu, X
+        grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
+        mus.append(colsum[:p].to(torch.float32) / n_obs)
+        Xs.append(X)
 
-    Gl, mu_l, X_l = field_gram(0, n_vars[0])
-    if bivariate:
-        Gr, mu_r, X_r = field_gram(1, n_vars[1])
-    else:
-        Gr, mu_r, X_r = Gl, mu_l, X_l
-
-    dof = n_obs - 1
-    La = torch.linalg.cholesky(Gl)
-    Lb = torch.linalg.cholesky(Gr) if bivariate else La
-    M = (La.mH @ Lb) / dof
-
-    if not rotated:
-        _, s, _ = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
-        return (s, nuclear_norm_surrogate(M),
-                bool(torch.isfinite(s).all()), 0)
-
-    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
-
-    def spatial(X, mu, p, L_chol, T_side):
-        T = torch.linalg.solve_triangular(L_chol.mH, T_side, upper=True)
-        if complexify:
-            S = analytic_projection_stack(T, H).to(torch.float32)
-        else:
-            S = T.real.to(torch.float32)
+    def project(i, S):
+        X = Xs[i]
         S_pad = torch.zeros((X.shape[0], S.shape[1]), dtype=torch.float32,
                             device=device)
         S_pad[:n_obs] = S
-        P = (S_pad.T @ X.to(torch.float32)).T[:p]
-        P = P - mu[:p, None] * torch.sum(S, dim=0)[None, :]
-        return combine_analytic_projection(P) if complexify else P
+        return (S_pad.T @ X.to(torch.float32)).T[:n_vars[i]]
 
-    Vl = spatial(X_l, mu_l, n_vars[0], La, U)
-    sqrt_s = torch.sqrt(s).to(Vl.dtype)
-    if bivariate:
-        Vr = spatial(X_r, mu_r, n_vars[1], Lb, V)
-        L = torch.cat([Vl, Vr], dim=0) * sqrt_s[None, :]
-    else:
-        L = Vl * sqrt_s[None, :]
-    n_vars_left = Vl.shape[0]
-    L_rot, _, _, converged, n_it = promax(
-        L, power=power, tol=tol, polar_method=polar_method,
-        space=ensemble_space(L.shape[0], L.shape[1], L.element_size()),
-    )
-    norm_left = torch.linalg.norm(L_rot[:n_vars_left], dim=0)
-    if bivariate:
-        variance = norm_left * torch.linalg.norm(L_rot[n_vars_left:], dim=0)
-    else:
-        variance = norm_left ** 2
-    variance = torch.sort(variance, descending=True).values
-    converged = converged and bool(torch.isfinite(variance).all())
-    return variance, torch.sum(variance), converged, n_it
+    return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
+                               complexify, rotated, omega, n_rot, power,
+                               tol, n_iter, polar_method)
+
+
+def fast_surrogate_variance_gen(seed, omega, n_obs, n_vars, H=None,
+                                complexify=False, rotated=False, n_rot=10,
+                                power=1, tol=1e-8, n_iter=8,
+                                jitter_rel=1e-6, dist='normal32',
+                                polar_method='ns', fields=None):
+    """One Rule-N surrogate solve whose fields are generated on the fly
+    and never stored (the JAX package's ``fast_surrogate_variance_gen``).
+
+    Per field (seed ``2 * seed + i`` mod 2^32, distribution ``dist``):
+    :func:`xmca_tpu_torch.ops.surrogate.surrogate_gram` generates the
+    field inside the Gram kernel and returns the raw Gram with its
+    centering terms; :func:`centered_gram_from_raw` centers it, then the
+    analytic fold, the jitter, Cholesky, the reduced kernel and the
+    subspace SVD.  The rotated variant back-projects the loadings with
+    :func:`surrogate_project`, which regenerates the same field (one
+    ``(n, 2k)`` stack when complexified), centers them with the column
+    means and runs promax in the space :func:`ensemble_space` picks.
+
+    ``omega`` is the subspace start block (on the device the run uses).
+    ``fields`` (tests only) injects pre-drawn ``(n_obs, p_i)`` fields,
+    one per side, which then go through the plain ``gram_from_field``
+    and ``project_from_field`` instead of the kernels.
+
+    Returns ``(variance, total, converged, n_iter_rot)``; the last is the
+    rotation's iteration count (0 when not rotated).
+    """
+    from xmca_tpu_torch.ops.surrogate import (centered_gram_from_raw,
+                                              gram_from_field,
+                                              project_from_field,
+                                              surrogate_gram,
+                                              surrogate_project)
+
+    device = omega.device
+    seeds = [(2 * int(seed) + i) & 0xFFFFFFFF for i in range(len(n_vars))]
+    if complexify:
+        H = H.to(device=device, dtype=torch.float32)
+
+    grams, mus = [], []
+    for i, p in enumerate(n_vars):
+        if fields is None:
+            G, mu, u, mumu = surrogate_gram(seeds[i], n_obs, p, dist, device)
+        elif tuple(fields[i].shape) != (n_obs, p):
+            raise ValueError('injected field {} must have shape {}'
+                             .format(i, (n_obs, p)))
+        else:
+            G, mu, u, mumu = gram_from_field(fields[i])
+        grams.append(_fold_jitter(centered_gram_from_raw(G, u, mumu), p, H,
+                                  complexify, jitter_rel))
+        mus.append(mu)
+
+    def project(i, S):
+        if fields is None:
+            return surrogate_project(seeds[i], S, n_obs, n_vars[i], dist,
+                                     device)
+        return project_from_field(fields[i], S)
+
+    return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
+                               complexify, rotated, omega, n_rot, power,
+                               tol, n_iter, polar_method)

@@ -10,7 +10,7 @@
 // per 128 elements, far below the store rate.
 //
 // Design:
-// * Philox4x32-10 (Salmon et al. 2011) in the kernel.  Key =
+// * Philox4x32-10 (philox.cuh) in the kernel.  Key =
 //   (seed ^ 0x53474E53, stream); counter = (row, column group, 0, 0).
 //   Output word w, bit b is the element at column 128*group + 32*w + b:
 //   bit 1 -> +1, bit 0 -> -1.  Rows >= n and columns >= p are 0.
@@ -25,27 +25,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kCols = 128;              // columns per group == threads
 constexpr int kRows = 128;              // rows per tile
 constexpr int kStride = kCols + 16;     // padded shared row (bytes)
 constexpr uint32_t kSalt = 0x53474E53u; // 'SGNS', as the TPU kernel's
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += kW0;
-    k1 += kW1;
-  }
-  return c;
-}
 
 // 4 consecutive elements (bits b..b+3 of `word`) as packed int8 bytes
 __device__ __forceinline__ uint32_t pack4(uint32_t word, int b, int col,
@@ -73,7 +60,7 @@ sign_field_kernel(int8_t* __restrict__ X, int32_t* __restrict__ colsum,
 
   for (int r0 = 0; r0 < n_pad; r0 += kRows) {
     const int row = r0 + tid;
-    const uint4 w4 = philox4x32_10(
+    const uint4 w4 = xmca::philox4x32_10(
         make_uint4(static_cast<uint32_t>(row), static_cast<uint32_t>(grp),
                    0u, 0u), k0, k1);
     const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``xmca_tpu_torch/csrc/*.cu``).
 
-At first use every source is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with :mod:`ctypes`.  No PyTorch header is included, so the build
-takes seconds.  The library lands in ``build/xmca_tpu_torch/`` beside
-the package (the repository's ``build/`` directory, ignored by git) and
-is rebuilt whenever a source is newer than it.
+At first use every source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into ONE
+shared library with a plain C interface, which is loaded with
+:mod:`ctypes`.  No PyTorch header is included, so the build takes
+seconds.  The library lands in ``build/xmca_tpu_torch/`` beside the
+package (the repository's ``build/`` directory, ignored by git) and is
+rebuilt whenever a source or a shared header (``csrc/*.cuh``) is newer
+than it.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -28,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build',
                          'xmca_tpu_torch')
 LIB_PATH = os.path.join(BUILD_DIR, 'libxmca_tpu_torch_kernels.so')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 LAUNCHES = collections.Counter()
 
@@ -39,6 +41,9 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     'xmca_syrk': [_P, _P, _I, _I, _I, _P],
     'xmca_sign_field_sums': [_P, _P, _I, _I, _I, _I, _U, _U, _P],
+    'xmca_surrogate_field': [_P, _I, _I, _U, _I, _P],
+    'xmca_surrogate_gram': [_P, _P, _I, _I, _I, _U, _I, _P],
+    'xmca_surrogate_project': [_P, _P, _I, _I, _I, _U, _I, _P],
 }
 
 _state = {'lib': None, 'log': ''}
@@ -46,6 +51,10 @@ _state = {'lib': None, 'log': ''}
 
 def sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu')))
+
+
+def headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
 
 
 def _nvcc():
@@ -63,17 +72,41 @@ def build():
     srcs = sources()
     if os.path.exists(LIB_PATH) and all(
             os.path.getmtime(s) <= os.path.getmtime(LIB_PATH)
-            for s in srcs):
+            for s in srcs + headers()):
         return ''
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = '{}.{}.tmp'.format(LIB_PATH, os.getpid())
-    cmd = [_nvcc()] + NVCC_FLAGS + ['-o', tmp] + srcs
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [os.path.join(BUILD_DIR, '{}.{}.o'.format(
+        os.path.basename(src)[:-3], tag)) for src in srcs]
+    jobs = []
+    try:
+        for src, obj in zip(srcs, objs):
+            cmd = [nvcc] + NVCC_FLAGS + ['-c', '-o', obj, src]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in jobs]
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [(cmd, out) for cmd, out, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(
+            '{}\n{}'.format(' '.join(cmd), out) for cmd, out in failed))
+    tmp = '{}.{}.tmp'.format(LIB_PATH, tag)
+    cmd = [nvcc, '-shared', '-o', tmp] + objs
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError('nvcc failed ({}):\n{}\n{}'.format(
+        raise RuntimeError('nvcc link failed ({}):\n{}\n{}'.format(
             ' '.join(cmd), proc.stdout, proc.stderr))
     os.replace(tmp, LIB_PATH)          # atomic for concurrent builders
-    return proc.stdout + proc.stderr
+    return ''.join(out for _, out, _ in logs) + proc.stdout + proc.stderr
 
 
 def library():
