@@ -3,9 +3,13 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels from ``xmca_tpu_torch/csrc`` (nvcc,
-   sm_90a) and prints the card, its power limit and the TF32 flags;
+   sm_90a), prints their registers, shared memory and spills, the card,
+   its power limit and the TF32 flags;
 2. holds each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at small ragged ones, and times both;
+   the main path's shapes and at small ragged ones, and times both, the
+   one library call that computes the same function where there is one
+   (syrk: ``torch._int_mm``, ``torch.mm``), and the kernel's bound (from
+   the card's published peaks and this run's shapes);
 3. drives the main path once through the public API at full width: two
    synthetic (2000 steps x 250 x 400 cells) f32 fields through
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
@@ -77,12 +81,40 @@ def _pm1_field(torch, n, p, n_pad, p_pad, gen, dtype):
     return X
 
 
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet),
+# for each kernel's bound: the larger of its operations over the peak of
+# their type and its bytes (each input read once, each output written
+# once) over the memory rate.
+PEAK_OPS = {'int8': 1979e12, 'bf16': 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(ops=0.0, kind='bf16', nbytes=0.0):
+    """(bound_ms, bound_by) of ``ops`` operations of ``kind`` and
+    ``nbytes`` bytes of memory traffic."""
+    t_ops = ops / PEAK_OPS[kind] if ops else 0.0
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def _gram_bound(n_pad, p_pad, in_bytes, kind):
+    """The lower triangle of an (n_pad, n_pad) Gram over p_pad columns:
+    n_pad (n_pad + 1) / 2 p_pad multiply-adds; X read, f32 G written."""
+    return bound(n_pad * (n_pad + 1) / 2 * p_pad * 2, kind,
+                 n_pad * p_pad * in_bytes + n_pad * n_pad * 4)
+
+
 def check_syrk(torch):
     from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
     gen = torch.Generator(device='cuda').manual_seed(0)
     n_pad, p_pad = pad_to(N_OBS, N_LAT * N_LON)
+    # the main path's shape, small and ragged ones, (4096, 20096) (528
+    # tiles, four whole waves), one contraction block (p = 128) and a
+    # padded second tile row (n = 130)
     shapes = [(N_OBS, N_LAT * N_LON), (128, 128), (200, 3000),
-              (1000, 4100), (1900, 10000)]
+              (1000, 4100), (1900, 10000), (4000, 20000), (300, 128),
+              (130, 5000)]
     for n, p in shapes:
         X = _pm1_field(torch, n, p, *pad_to(n, p), gen, torch.int8)
         G, ref = syrk(X, pm1=True), syrk_reference(X)
@@ -102,27 +134,48 @@ def check_syrk(torch):
                      device='cuda').to(torch.bfloat16)
     G, ref = syrk(Xr), syrk_reference(Xr)
     rel = float((G - ref).abs().max() / ref.abs().max())
-    # two f32 sums of 100352 products in different orders, each with a
+    # two f32 sums of 100096 products in different orders, each with a
     # rounding walk of ~4 sqrt(n_adds) u ~ 2e-5 of the diagonal (kernel:
-    # 1568 chunk folds of truncating MMAs; plain: f32 GEMM): 1e-4
+    # truncating wgmma chunks of 256 products folded with rounded adds;
+    # plain: f32 GEMM): 1e-4
     _check(rel <= 1e-4, 'syrk bf16 random rel err {:.3e} > 1e-4'
            .format(rel))
     _check(torch.equal(G, G.T), 'syrk bf16 random not symmetric')
+    _check(torch.equal(G, syrk(Xr)), 'syrk bf16 random not deterministic')
     print('syrk int8 [-127,127] bit-equal; bf16 randn at {} rel err '
-          '{:.3e} (tol 1e-4)'.format((n_pad, p_pad), rel))
+          '{:.3e} (tol 1e-4), symmetric, the same bits twice'
+          .format((n_pad, p_pad), rel))
+    del Xr, G, ref
 
+    # times at the main path's shape; the yardsticks compute the full
+    # (not triangular) product in one library call, which the port never
+    # makes
     X = _pm1_field(torch, N_OBS, N_LAT * N_LON, n_pad, p_pad, gen,
                    torch.int8)
-    err = float((syrk(X, pm1=True) - syrk_reference(X)).abs().max())
-    ms = _time_ms(torch, lambda: syrk(X, pm1=True), 20)
-    plain_ms = _time_ms(torch, lambda: syrk_reference(X), 5)
     Xb = X.to(torch.bfloat16)
-    ms_bf16 = _time_ms(torch, lambda: syrk(Xb), 20)
-    plain_bf16 = _time_ms(torch, lambda: syrk_reference(Xb), 5)
-    print('syrk at {}: int8 kernel {:.3f} ms, plain (f64 matmul) {:.3f} '
-          'ms; bf16 kernel {:.3f} ms, plain (f32 matmul) {:.3f} ms'
-          .format((n_pad, p_pad), ms, plain_ms, ms_bf16, plain_bf16))
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+    out = {}
+    for name, Xk, kern, lib, lib_name in (
+            ('int8', X, lambda: syrk(X, pm1=True),
+             lambda: torch._int_mm(X, X.T), 'torch._int_mm(X, X.T)'),
+            ('bf16', Xb, lambda: syrk(Xb),
+             lambda: torch.mm(Xb, Xb.T, out_dtype=torch.float32),
+             'torch.mm(X, X.T, out_dtype=torch.float32)')):
+        err = float((kern() - syrk_reference(Xk)).abs().max())
+        ms = _time_ms(torch, kern, 20)
+        plain_ms = _time_ms(torch, lambda: syrk_reference(Xk), 5)
+        library_ms = _time_ms(torch, lib, 20)
+        bound_ms, bound_by = _gram_bound(n_pad, p_pad, Xk.element_size(),
+                                         name)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        print('syrk {} at {}: kernel {:.4f} ms = {:.1f}% of its bound '
+              '{:.4f} ms ({}); plain {:.3f} ms; library {} {:.4f} ms '
+              '(kernel / library {:.3f})'.format(
+                  name, (n_pad, p_pad), ms, 100 * bound_ms / ms, bound_ms,
+                  bound_by, plain_ms, lib_name, library_ms,
+                  ms / library_ms))
+    return dict(out['int8'], bf16=out['bf16'])
 
 
 def check_sign_field(torch):
@@ -147,10 +200,14 @@ def check_sign_field(torch):
         5, N_OBS, N_LAT * N_LON, n_pad, p_pad, 'cuda'), 20)
     plain_ms = _time_ms(torch, lambda: sign_field_sums_reference(
         5, N_OBS, N_LAT * N_LON, n_pad, p_pad, 'cuda'), 3)
+    # writes the int8 field and the int32 column sums; reads nothing
+    bound_ms, bound_by = bound(nbytes=n_pad * p_pad + 4 * p_pad)
     print('sign_field_sums bit-equal (field and sums) at {} and {}; '
-          'kernel {:.3f} ms, plain {:.3f} ms'.format(
-              (N_OBS, N_LAT * N_LON), (200, 3000), ms, plain_ms))
-    return {'max_abs_err': errs[0], 'ms': ms, 'plain_ms': plain_ms}
+          'kernel {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({})'.format(
+              (N_OBS, N_LAT * N_LON), (200, 3000), ms, plain_ms, bound_ms,
+              bound_by))
+    return {'max_abs_err': errs[0], 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
 
 
 def check_surrogate_field(torch):
@@ -177,9 +234,13 @@ def check_surrogate_field(torch):
         5, N_OBS, N_LAT * N_LON, 'normal32', 'cuda'), 20)
     plain_ms = _time_ms(torch, lambda: surrogate_field_reference(
         5, N_OBS, N_LAT * N_LON, 'normal32', 'cuda'), 3)
-    print('surrogate_field normal32 at {}: kernel {:.3f} ms, plain {:.3f} '
-          'ms'.format((N_OBS, N_LAT * N_LON), ms, plain_ms))
-    return {'max_abs_err': 0.0, 'ms': ms, 'plain_ms': plain_ms}
+    # writes the (n, p) bf16 field; reads nothing
+    bound_ms, bound_by = bound(nbytes=N_OBS * N_LAT * N_LON * 2)
+    print('surrogate_field normal32 at {}: kernel {:.4f} ms, plain {:.3f} '
+          'ms, bound {:.4f} ms ({})'.format((N_OBS, N_LAT * N_LON), ms,
+                                            plain_ms, bound_ms, bound_by))
+    return {'max_abs_err': 0.0, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
 
 
 def check_surrogate_gram(torch):
@@ -226,10 +287,17 @@ def check_surrogate_gram(torch):
         Xp[:n, :p] = surrogate_field(9, n, p, 'normal32', 'cuda')
         return syrk(Xp)
     comp_ms = _time_ms(torch, composite, 5)
+    # the lower triangle of the (n, n) Gram of the generated (n, p) bf16
+    # field; writes G, mu and u
+    bound_ms, bound_by = bound(n * (n + 1) / 2 * p * 2, 'bf16',
+                               4 * (n * n + p + n))
     print('surrogate_gram at {}: kernel {:.3f} ms, plain (f64 matmul) '
-          '{:.3f} ms, surrogate_field + pad copy + syrk bf16 {:.3f} ms'
-          .format((n, p), ms, plain_ms, comp_ms))
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+          '{:.3f} ms, surrogate_field + pad copy + syrk bf16 {:.3f} ms, '
+          'bound {:.4f} ms ({})'.format((n, p), ms, plain_ms, comp_ms,
+                                        bound_ms, bound_by))
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+            'field_plus_syrk_ms': comp_ms}
 
 
 def check_surrogate_project(torch):
@@ -249,10 +317,14 @@ def check_surrogate_project(torch):
         10, S, n, p, 'normal32', 'cuda'), 20)
     plain_ms = _time_ms(torch, lambda: surrogate_project_reference(
         10, S, n, p, 'normal32', 'cuda'), 3)
+    # P = X^T S: 2 n p m operations on bf16 values (the generated field
+    # and S rounded to bf16); reads S, writes P
+    bound_ms, bound_by = bound(2.0 * n * p * m, 'bf16', 4 * (n * m + p * m))
     print('surrogate_project at {} x m={}: rel err {:.2e} (tol 1e-5); '
-          'kernel {:.3f} ms, plain (f64 matmul) {:.3f} ms'.format(
-              (n, p), m, rel, ms, plain_ms))
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+          'kernel {:.4f} ms, plain (f64 matmul) {:.3f} ms, bound {:.4f} ms '
+          '({})'.format((n, p), m, rel, ms, plain_ms, bound_ms, bound_by))
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
 
 
 def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
@@ -408,9 +480,13 @@ def main():
     _build.library()
     print('kernels built in {:.1f} s (nvcc, sm_90a)'.format(
         time.perf_counter() - t0))
+    # -Xptxas -v: each kernel's registers, static shared memory, spills
     for line in _build.build_log().splitlines():
-        if 'registers' in line or 'spill' in line:
+        if any(k in line for k in ('entry function', 'registers', 'spill',
+                                   'wgmma')):
             print('  ' + line.strip())
+    print('syrk: {} bytes of dynamic shared memory a block'.format(
+        _build.library().xmca_syrk_smem_bytes()))
     print('card: {} | torch {} | CUDA {} | allow_tf32 matmul={} cudnn={}'
           .format(card, torch.__version__, torch.version.cuda,
                   torch.backends.cuda.matmul.allow_tf32,
@@ -447,9 +523,12 @@ def main():
               int(np.median(iters)), iters.max(), peak_gb))
     print('rotated variance {}'.format(np.array2string(var, precision=4)))
     print('null q95 {}'.format(np.array2string(q95, precision=4)))
-    _check(launches.get('syrk', 0) > 0, 'main path launched no syrk')
-    _check(launches.get('sign_field_sums', 0) > 0,
-           'main path launched no sign_field_sums')
+    _check(launches.get('syrk', 0) == 2 * N_RUNS,
+           'main path launched syrk {} times, not 2 x {}'.format(
+               launches.get('syrk', 0), N_RUNS))
+    _check(launches.get('sign_field_sums', 0) == 2 * N_RUNS,
+           'main path launched sign_field_sums {} times, not 2 x {}'
+           .format(launches.get('sign_field_sums', 0), N_RUNS))
     _check(null.shape[0] == N_ROT and null.shape[1] >= int(0.9 * N_RUNS),
            'Rule-N kept {} of {} runs'.format(null.shape[1], N_RUNS))
     _check(np.isfinite(null).all() and np.isfinite(var).all(),

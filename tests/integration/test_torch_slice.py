@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from xmca_tpu.compat import xr
+from xmca_tpu_torch.compat import xr as txr
 from xmca_tpu.core.fastpath import hilbert_imag_matrix
 from xmca_tpu.xarray import xMCA as JxMCA
 from xmca_tpu_torch.utils.state import install_state, to_state
@@ -27,7 +28,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 N_OBS, N_LAT, N_LON, K = 64, 8, 20, 4
 
 
-def _fields():
+def _fields(xr=xr):
+    """Two fields as DataArrays of the package whose ``xr`` is given (each
+    package takes its own labeled type; both are real xarray's when it
+    is installed)."""
     t = np.arange(N_OBS, dtype=np.float64)
     modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 9)[None] / N_OBS)
     p = N_LAT * N_LON
@@ -57,7 +61,7 @@ def solved():
     jm.set_solver(spectrum='fast', surrogate_source='generated',
                   surrogate_gen_dist='rademacher8', ensemble_tol=1e-4,
                   ensemble_subspace_iters=6)
-    tm = _prepare(TxMCA(left, right, device='cpu'))
+    tm = _prepare(TxMCA(*_fields(txr), device='cpu'))
     jm.solve(complexify=True)
     tm.solve(complexify=True)
     return jm, tm
@@ -134,10 +138,12 @@ def test_state_carry_over_round_trip():
 
 
 def test_port_imports_no_jax():
+    """The port loads no module of JAX and none of the JAX package: it
+    keeps its own copies of what it needs (version, compat)."""
     code = ('import sys, xmca_tpu_torch, xmca_tpu_torch.xarray, '
             'xmca_tpu_torch.array, xmca_tpu_torch.utils.state; '
             'print(sorted(m for m in sys.modules if m.split(".")[0] '
-            'in ("jax", "jaxlib")))')
+            'in ("xmca_tpu", "jax", "jaxlib")))')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == '[]'
@@ -147,6 +153,6 @@ def test_cuda_device_without_card_raises():
     import torch
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
-    left, right = _fields()
+    left, right = _fields(txr)
     with pytest.raises(RuntimeError):
         TxMCA(left, right)

@@ -15,7 +15,9 @@ import torch
 from xmca_tpu_torch.ops import _build
 from xmca_tpu_torch.ops.surrogate import (philox4x32_10, sign_field_sums,
                                           sign_field_sums_reference)
-from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
+from xmca_tpu_torch.ops.syrk import (TILE, pad_to, schedule, syrk,
+                                     syrk_reference, tile_coords,
+                                     work_units, workspace_tiles)
 
 
 @pytest.fixture
@@ -150,14 +152,69 @@ def test_cpu_wrappers_launch_nothing():
     assert _build._state['lib'] is None
 
 
+@pytest.mark.parametrize('n_pad, p_pad', [(128, 128), (256, 3072),
+                                          (2048, 100096), (4096, 20096)])
+@pytest.mark.parametrize('elem_bytes', [1, 2])
+def test_syrk_schedule_covers_every_tile_once(n_pad, p_pad, elem_bytes):
+    """The kernel's work list on a 132-SM card: every lower-triangle
+    tile is computed once, whole or as pieces that cover its contraction
+    blocks exactly once in order; no block idles a whole wave while
+    another has work; the workspace holds one tile per piece."""
+    sms = 132
+    s = schedule(n_pad, p_pad, elem_bytes, sms)
+    nb = n_pad // TILE
+    assert s.tiles == nb * (nb + 1) // 2
+    assert s.kblocks == p_pad * elem_bytes // 128
+    assert s.grid <= sms and s.dp_tiles + s.split_tiles == s.tiles
+    assert s.split_tiles * s.splits <= s.grid
+    cover = {}
+    loads = []
+    for b in range(s.grid):
+        units = work_units(s, b)
+        loads.append(sum(k1 - k0 for _, k0, k1, _ in units))
+        for t, k0, k1, slot in units:
+            assert 0 <= k0 < k1 <= s.kblocks
+            assert (slot < 0) == (t < s.dp_tiles)
+            cover.setdefault(t, []).append((k0, k1, slot))
+    assert sorted(cover) == list(range(s.tiles))
+    slots = []
+    for t, pieces in cover.items():
+        assert len(pieces) == (1 if t < s.dp_tiles else s.splits)
+        bounds = [k for k0, k1, _ in pieces for k in (k0, k1)]
+        assert bounds[0] == 0 and bounds[-1] == s.kblocks
+        assert all(bounds[i] == bounds[i + 1]
+                   for i in range(1, len(bounds) - 1, 2))
+        slots += [slot for _, _, slot in pieces if slot >= 0]
+    assert sorted(slots) == list(range(workspace_tiles(s)))
+    if s.dp_tiles:
+        # the split tail adds at most one piece to a block's full waves
+        assert max(loads) - min(loads) <= -(-s.kblocks // s.splits)
+    ti, tj = zip(*(tile_coords(t) for t in range(s.tiles)))
+    assert len(set(zip(ti, tj))) == s.tiles
+    assert all(0 <= j <= i < nb for i, j in zip(ti, tj))
+
+
+def test_syrk_schedule_main_path_shape():
+    """At the main path's (2048, 100096) int8: 136 tiles, one whole
+    wave of 132 and 4 tiles cut into 33 pieces of ~24 blocks each."""
+    s = schedule(2048, 100096, 1, 132)
+    assert s == (136, 782, 132, 132, 4, 33)
+    assert workspace_tiles(s) == 132
+    assert schedule(4096, 20096, 1, 132)[2:] == (132, 528, 0, 1)
+    assert schedule(128, 128, 1, 132)[2:] == (1, 0, 1, 1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n, p', [(128, 128), (200, 3000), (1000, 4100)])
+@pytest.mark.parametrize('n, p', [(128, 128), (200, 3000), (1000, 4100),
+                                  (4000, 20000), (300, 128), (130, 5000)])
 def test_syrk_kernel_matches_plain_int8(cuda_device, n, p):
     n_pad, p_pad = pad_to(n, p)
     X, _ = sign_field_sums(9, n, p, n_pad, p_pad, cuda_device)
     G = syrk(X, pm1=True)
     torch.cuda.synchronize()
     assert torch.equal(G, syrk_reference(X))
+    Xb = X.to(torch.bfloat16)
+    assert torch.equal(syrk(Xb), syrk_reference(Xb))
 
 
 @pytest.mark.cuda
@@ -171,6 +228,22 @@ def test_syrk_kernel_matches_plain_bf16(cuda_device):
     # f32 sums of 1024 products in another order: ~1e-6 relative
     assert torch.allclose(G, ref, rtol=1e-5, atol=1e-3)
     assert torch.equal(G, G.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n, p', [(130, 20096), (2000, 100000)])
+def test_syrk_kernel_bf16_randn_split_tiles(cuda_device, n, p):
+    """bf16 N(0,1) through a padded second tile row (n = 130) and
+    through the split tail (n_pad = 2048): within 1e-4 of max|G| (f32
+    sums in another order, the kernel's folded every 64 products),
+    exactly symmetric, the same bits on a second run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    X = torch.zeros(pad_to(n, p), dtype=torch.bfloat16, device=cuda_device)
+    X[:n, :p] = torch.randn((n, p), generator=gen, device=cuda_device)
+    G, ref = syrk(X), syrk_reference(X)
+    torch.cuda.synchronize()
+    assert float((G - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(G, G.T) and torch.equal(G, syrk(X))
 
 
 @pytest.mark.cuda

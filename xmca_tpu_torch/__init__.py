@@ -8,9 +8,9 @@ Pallas TPU kernels rewritten by hand in CUDA C++ (``csrc/``):
 >>> from xmca_tpu_torch.xarray import xMCA     # labeled-array API
 >>> m = xMCA(left, right, device='cuda')
 
-Nothing here imports JAX.
+Nothing here imports JAX or the JAX package.
 """
-from xmca_tpu.version import __version__
+from xmca_tpu_torch.version import __version__
 
 __all__ = ['__version__', 'MCA', 'xMCA']
 

@@ -15,7 +15,7 @@ polar, and 6 subspace iterations.
 import numpy as np
 import torch
 
-from xmca_tpu.version import __version__
+from xmca_tpu_torch.version import __version__
 from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core import preprocess as _pre
 from xmca_tpu_torch.core.rotation import promax as _promax

@@ -4,11 +4,11 @@ Counterpart of ``xmca_tpu/api/xarray.py``: the constructor captures
 dims/coords, ``apply_coslat`` weights by sqrt(cos(latitude)), and the
 spectrum getters come back as DataArrays with a 1-based ``mode``
 coordinate.  Works with real xarray when installed, else with
-:mod:`xmca_tpu.compat.xarray_lite`.
+:mod:`xmca_tpu_torch.compat.xarray_lite`.
 """
 import numpy as np
 
-from xmca_tpu.compat import xr
+from xmca_tpu_torch.compat import xr
 from xmca_tpu_torch.api.array import MCA, _not_ported
 
 # the labeled array type xMCA takes: xarray's when it is installed, else
@@ -23,7 +23,7 @@ def _is_dataarray(obj):
             return True
     except ImportError:
         pass
-    from xmca_tpu.compat.xarray_lite import DataArray as _LiteDA
+    from xmca_tpu_torch.compat.xarray_lite import DataArray as _LiteDA
     return isinstance(obj, _LiteDA)
 
 

@@ -1,7 +1,6 @@
 // Lower-triangle Gram G = X X^T on mma.sync, templated on where the
-// operand comes from: syrk.cu loads it from device memory, surrogate_gram.cu
-// generates it in the block.  One copy of the tile decode, the fragment
-// loads, the bf16 chunk fold and the mirrored epilogue serves both.
+// operand comes from: surrogate_gram.cu's loader generates it in the
+// block (K1, syrk.cu, has its own wgmma kernel).
 //
 // * one CUDA block per lower-triangle 64x64 tile, decoded from blockIdx
 //   (no scalar prefetch); the whole contraction loops inside the block,

@@ -31,15 +31,19 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build',
 LIB_PATH = os.path.join(BUILD_DIR, 'libxmca_tpu_torch_kernels.so')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+# dlopen/dlsym: csrc/syrk.cu takes cuTensorMapEncodeTiled from libcuda
+LINK_FLAGS = ['-ldl']
 
 LAUNCHES = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
-# C signature of every entry point: (argtypes, restype int = cudaError_t)
+# C signature of every entry point: argtypes; restype int (a cudaError_t,
+# or a size for xmca_syrk_smem_bytes)
 _SIGNATURES = {
-    'xmca_syrk': [_P, _P, _I, _I, _I, _P],
+    'xmca_syrk': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    'xmca_syrk_smem_bytes': [],
     'xmca_sign_field_sums': [_P, _P, _I, _I, _I, _I, _U, _U, _P],
     'xmca_surrogate_field': [_P, _I, _I, _U, _I, _P],
     'xmca_surrogate_gram': [_P, _P, _I, _I, _I, _U, _I, _P],
@@ -98,7 +102,7 @@ def build():
         raise RuntimeError('nvcc failed:\n' + '\n'.join(
             '{}\n{}'.format(' '.join(cmd), out) for cmd, out in failed))
     tmp = '{}.{}.tmp'.format(LIB_PATH, tag)
-    cmd = [nvcc, '-shared', '-o', tmp] + objs
+    cmd = [nvcc, '-shared', '-o', tmp] + objs + LINK_FLAGS
     proc = subprocess.run(cmd, capture_output=True, text=True)
     for obj in objs:
         os.remove(obj)

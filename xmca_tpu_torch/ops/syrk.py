@@ -1,7 +1,7 @@
 """Symmetric rank-k update ``G = X X^T`` (kernel: ``csrc/syrk.cu``).
 
 The temporal Gram of every Rule-N surrogate field.  The CUDA kernel
-computes only the lower-triangle 64x64 tiles and writes each tile and
+computes only the lower-triangle 128x128 tiles and writes each tile and
 its mirror, so ``G`` is exactly symmetric.  int8 input accumulates in
 int32 (integer-exact); bf16 input in f32.  The f32 result is exact for
 integer-valued input while every partial sum stays below 2^24 in
@@ -9,21 +9,87 @@ magnitude (``p_pad < 2^24`` for +-1 fields).
 
 Shapes must be pre-padded by :func:`pad_to`: zero rows and columns
 contribute nothing and the caller slices them away.
+
+The kernel is persistent: one block per SM walks a fixed list of work
+units that :func:`schedule` computes here, where the CPU tests reach it.
+Whole waves of tiles run over the full contraction; the tiles left over
+after the last whole wave are split along the contraction into
+``splits`` pieces, one per block, so the last wave keeps every SM busy.
+Each piece writes its partial tile to a workspace that the wrapper
+allocates, and a second pass sums the pieces of each tile in a fixed
+order (integer-exact for int8, the same bits on every run for bf16).
 """
+import collections
+import functools
+import math
+
 import torch
 
 from xmca_tpu_torch.ops import _build
 
-__all__ = ['syrk', 'syrk_reference', 'pad_to', 'ROW_PAD', 'COL_PAD']
+__all__ = ['syrk', 'syrk_reference', 'pad_to', 'schedule', 'work_units',
+           'workspace_tiles', 'tile_coords', 'ROW_PAD', 'COL_PAD', 'TILE']
 
-ROW_PAD = 128        # n_pad multiple (the kernel's tile is 64 rows)
-COL_PAD = 128        # p_pad multiple (128-byte contraction chunks)
+ROW_PAD = 128        # n_pad multiple (the kernel's tile is 128 rows)
+COL_PAD = 128        # p_pad multiple (128-byte contraction blocks)
+TILE = 128           # output tile of the kernel (rows == cols)
+KBLOCK_BYTES = 128   # contraction bytes per pipeline stage
+MIN_SPLIT_KBLOCKS = 4   # no contraction piece is shorter than this
 _INT32_MAX = 2 ** 31 - 1
+
+Schedule = collections.namedtuple(
+    'Schedule', 'tiles kblocks grid dp_tiles split_tiles splits')
+Schedule.__doc__ = """The kernel's work list for one call.
+
+tiles: lower-triangle tiles; kblocks: 128-byte contraction blocks;
+grid: blocks launched; dp_tiles: tiles taken whole (block b takes tiles
+b, b + grid, ...); split_tiles: the tiles after them, each cut into
+``splits`` contraction pieces (block b < split_tiles * splits takes
+piece b % splits of tile dp_tiles + b // splits).
+"""
 
 
 def pad_to(n, p):
     """Padded (rows, cols) the kernel accepts for true sizes (n, p)."""
     return -(-n // ROW_PAD) * ROW_PAD, -(-p // COL_PAD) * COL_PAD
+
+
+def schedule(n_pad, p_pad, elem_bytes, sms):
+    """The :class:`Schedule` of an (n_pad, p_pad) input of
+    ``elem_bytes``-byte elements on a card with ``sms`` SMs."""
+    nb = n_pad // TILE
+    tiles = nb * (nb + 1) // 2
+    kblocks = p_pad * elem_bytes // KBLOCK_BYTES
+    waves, rem = divmod(tiles, sms)
+    splits = 1
+    if rem:
+        splits = max(1, min(sms // rem, kblocks // MIN_SPLIT_KBLOCKS))
+    grid = sms if waves else rem * splits
+    return Schedule(tiles, kblocks, grid, waves * sms, rem, splits)
+
+
+def work_units(s, block):
+    """The (tile, k0, k1, slot) units of ``block`` in the kernel's order:
+    contraction blocks [k0, k1) of ``tile``; ``slot`` is the workspace
+    tile the piece goes to, or -1 for a whole tile written to G."""
+    out = [(t, 0, s.kblocks, -1) for t in range(block, s.dp_tiles, s.grid)]
+    if block < s.split_tiles * s.splits:
+        i = block % s.splits
+        out.append((s.dp_tiles + block // s.splits,
+                    i * s.kblocks // s.splits,
+                    (i + 1) * s.kblocks // s.splits, block))
+    return out
+
+
+def workspace_tiles(s):
+    """Partial tiles (TILE x TILE, 4 bytes each) the split pieces need."""
+    return s.split_tiles * s.splits
+
+
+def tile_coords(t):
+    """Lower-triangle tile ``t`` -> (tile row, tile column), col <= row."""
+    ti = (math.isqrt(8 * t + 1) - 1) // 2
+    return ti, t - ti * (ti + 1) // 2
 
 
 def syrk_reference(X):
@@ -61,6 +127,11 @@ def _validate(X, pm1):
             '(pass pm1=True only for +-1 fields)'.format(bound))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def syrk(X, pm1=False):
     """``X X^T`` (f32, (n_pad, n_pad)) of a padded int8 or bf16 ``X``.
 
@@ -79,9 +150,16 @@ def syrk(X, pm1=False):
         raise ValueError('syrk expects a 16-byte aligned tensor')
     lib = _build.library()
     n_pad, p_pad = X.shape
+    index = X.device.index
+    s = schedule(n_pad, p_pad, X.element_size(), _sm_count(
+        torch.cuda.current_device() if index is None else index))
     G = torch.empty((n_pad, n_pad), dtype=torch.float32, device=X.device)
-    err = lib.xmca_syrk(X.data_ptr(), G.data_ptr(), n_pad, p_pad,
-                        int(X.dtype == torch.int8), _build.stream_of(X))
+    work = torch.empty((workspace_tiles(s), TILE, TILE), dtype=torch.int32,
+                       device=X.device)
+    err = lib.xmca_syrk(X.data_ptr(), G.data_ptr(), work.data_ptr(), n_pad,
+                        p_pad, int(X.dtype == torch.int8), s.kblocks, s.grid,
+                        s.dp_tiles, s.split_tiles, s.splits,
+                        _build.stream_of(X))
     _build.check(err, 'syrk')
     _build.LAUNCHES['syrk'] += 1
     return G
