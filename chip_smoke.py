@@ -6,10 +6,14 @@
    sm_90a), prints their registers, shared memory and spills, the card,
    its power limit and the TF32 flags;
 2. holds each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at small ragged ones, and times both, the
-   one library call that computes the same function where there is one
-   (syrk: ``torch._int_mm``, ``torch.mm``), and the kernel's bound (from
-   the card's published peaks and this run's shapes);
+   the main path's shapes and at small ragged ones (K3: its column-chunk
+   edges too, and its device memory), and times both, the one library
+   call that computes the same function where there is one (syrk:
+   ``torch._int_mm``, ``torch.mm``), a composite yardstick where there is
+   none (K3, K4: the stored field, then K1 or ``torch.mm``), and the
+   kernel's bound: the largest of its operations over the card's
+   published peak, its bytes over the memory rate and its Philox calls
+   over the SMs' issue rate (PHILOX_SASS_PER_CALL instructions each);
 3. drives the main path once through the public API at full width: two
    synthetic (2000 steps x 250 x 400 cells) f32 fields through
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
@@ -87,15 +91,75 @@ def _pm1_field(torch, n, p, n_pad, p_pad, gen, dtype):
 # once) over the memory rate.
 PEAK_OPS = {'int8': 1979e12, 'bf16': 989e12}
 PEAK_BYTES = 3.35e12
+# SASS instructions of one Philox4x32-10 call (csrc/philox.cuh), counted
+# by philox_sass_per_call() on 2026-10-16 (CUDA 12.8, sm_90a, -O3; NVIDIA
+# H100 80GB HBM3); main() prints the count of the run beside it
+PHILOX_SASS_PER_CALL = 40
+SM_ISSUE_LANES = 132 * 4 * 32      # lane-instructions an SM clock, all SMs
+# K1's times at (2048, 100096) before this accumulate mode (PERF.md, PR 3)
+SYRK_PR3_MS = {'int8': 0.3990, 'bf16': 0.6409}
+# the SMs' issue rate: 132 SMs x 4 warp-instructions a clock x 32 lanes,
+# at the SM clock nvidia-smi reports as clocks.max.sm (set by main())
+ISSUE = {'lanes_per_s': None}
+
+_PHILOX_PROBE = r'''
+#include "philox.cuh"
+extern "C" __global__ void probe1(const uint4* in, uint4* out, unsigned k) {
+  out[threadIdx.x] = xmca::philox4x32_10(in[threadIdx.x], k, 1u);
+}
+extern "C" __global__ void probe2(const uint4* in, uint4* out, unsigned k) {
+  out[threadIdx.x] = xmca::philox4x32_10(
+      xmca::philox4x32_10(in[threadIdx.x], k, 1u), k, 1u);
+}
+'''
 
 
-def bound(ops=0.0, kind='bf16', nbytes=0.0):
-    """(bound_ms, bound_by) of ``ops`` operations of ``kind`` and
-    ``nbytes`` bytes of memory traffic."""
-    t_ops = ops / PEAK_OPS[kind] if ops else 0.0
-    t_bytes = nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            'operations' if t_ops >= t_bytes else 'bytes')
+def philox_sass_per_call():
+    """SASS instructions of one Philox4x32-10 call: a kernel of two
+    chained calls minus one of a single call, both compiled from
+    ``csrc/philox.cuh`` with the library's nvcc flags and counted in
+    ``cuobjdump -sass`` (the key schedule, shared by every call a thread
+    makes, cancels)."""
+    import os
+    import re
+    from xmca_tpu_torch.ops import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.BUILD_DIR, 'philox_probe.cu')
+    cubin = os.path.join(_build.BUILD_DIR, 'philox_probe.cubin')
+    with open(src, 'w') as f:
+        f.write(_PHILOX_PROBE)
+    nvcc = _build._nvcc()
+    subprocess.run([nvcc, '-cubin', '-gencode', 'arch=compute_90a,code=sm_90a',
+                    '-O3', '-I', _build.CSRC_DIR, '-o', cubin, src],
+                   check=True, capture_output=True, timeout=300)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), 'cuobjdump'), '-sass', cubin],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r'Function : (\w+)', line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+            continue
+        m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+([A-Z@!][\w.@!]*)', line)
+        if name and m and m.group(1) != 'NOP':
+            counts[name] += 1
+    return counts['probe2'] - counts['probe1']
+
+
+def bound(ops=0.0, kind='bf16', nbytes=0.0, calls=0.0):
+    """``{bound_ms, bound_by, generation_ms}`` of ``ops`` operations of
+    ``kind``, ``nbytes`` bytes of memory traffic and ``calls`` Philox
+    calls (PHILOX_SASS_PER_CALL instructions each at the SMs' issue
+    rate): the largest of the three terms, and which one it is."""
+    terms = {'operations': ops / PEAK_OPS[kind] if ops else 0.0,
+             'bytes': nbytes / PEAK_BYTES,
+             'generation': (calls * PHILOX_SASS_PER_CALL
+                            / ISSUE['lanes_per_s'])}
+    by = max(terms, key=terms.get)
+    return {'bound_ms': 1e3 * terms[by], 'bound_by': by,
+            'generation_ms': 1e3 * terms['generation']}
 
 
 def _gram_bound(n_pad, p_pad, in_bytes, kind):
@@ -103,6 +167,17 @@ def _gram_bound(n_pad, p_pad, in_bytes, kind):
     n_pad (n_pad + 1) / 2 p_pad multiply-adds; X read, f32 G written."""
     return bound(n_pad * (n_pad + 1) / 2 * p_pad * 2, kind,
                  n_pad * p_pad * in_bytes + n_pad * n_pad * 4)
+
+
+def _kernel_name(key):
+    """A profiler key without its return type, namespace and arguments."""
+    key = key.replace('void ', '', 1).replace('(anonymous namespace)::', '')
+    return key.split('(')[0][:48]
+
+
+def _gen_calls(n, p):
+    """Philox calls of an (n, p) generated field: one per 4 elements."""
+    return n * -(-p // 4)
 
 
 def check_syrk(torch):
@@ -164,17 +239,15 @@ def check_syrk(torch):
         ms = _time_ms(torch, kern, 20)
         plain_ms = _time_ms(torch, lambda: syrk_reference(Xk), 5)
         library_ms = _time_ms(torch, lib, 20)
-        bound_ms, bound_by = _gram_bound(n_pad, p_pad, Xk.element_size(),
-                                         name)
+        b = _gram_bound(n_pad, p_pad, Xk.element_size(), name)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-        print('syrk {} at {}: kernel {:.4f} ms = {:.1f}% of its bound '
-              '{:.4f} ms ({}); plain {:.3f} ms; library {} {:.4f} ms '
-              '(kernel / library {:.3f})'.format(
-                  name, (n_pad, p_pad), ms, 100 * bound_ms / ms, bound_ms,
-                  bound_by, plain_ms, lib_name, library_ms,
-                  ms / library_ms))
+                         library_ms=library_ms, **b)
+        print('syrk {} at {}: kernel {:.4f} ms (PR 3: {:.4f} ms) = {:.1f}% '
+              'of its bound {:.4f} ms ({}); plain {:.3f} ms; library {} '
+              '{:.4f} ms (kernel / library {:.3f})'.format(
+                  name, (n_pad, p_pad), ms, SYRK_PR3_MS[name],
+                  100 * b['bound_ms'] / ms, b['bound_ms'], b['bound_by'],
+                  plain_ms, lib_name, library_ms, ms / library_ms))
     return dict(out['int8'], bf16=out['bf16'])
 
 
@@ -200,14 +273,16 @@ def check_sign_field(torch):
         5, N_OBS, N_LAT * N_LON, n_pad, p_pad, 'cuda'), 20)
     plain_ms = _time_ms(torch, lambda: sign_field_sums_reference(
         5, N_OBS, N_LAT * N_LON, n_pad, p_pad, 'cuda'), 3)
-    # writes the int8 field and the int32 column sums; reads nothing
-    bound_ms, bound_by = bound(nbytes=n_pad * p_pad + 4 * p_pad)
+    # writes the int8 field and the int32 column sums; reads nothing; one
+    # Philox call per 128 elements of the n true rows
+    b = bound(nbytes=n_pad * p_pad + 4 * p_pad, calls=N_OBS * p_pad // 128)
     print('sign_field_sums bit-equal (field and sums) at {} and {}; '
-          'kernel {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({})'.format(
-              (N_OBS, N_LAT * N_LON), (200, 3000), ms, plain_ms, bound_ms,
-              bound_by))
-    return {'max_abs_err': errs[0], 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+          'kernel {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({}; '
+          'generation {:.4f} ms)'.format(
+              (N_OBS, N_LAT * N_LON), (200, 3000), ms, plain_ms,
+              b['bound_ms'], b['bound_by'], b['generation_ms']))
+    return dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
 
 
 def check_surrogate_field(torch):
@@ -235,26 +310,35 @@ def check_surrogate_field(torch):
     plain_ms = _time_ms(torch, lambda: surrogate_field_reference(
         5, N_OBS, N_LAT * N_LON, 'normal32', 'cuda'), 3)
     # writes the (n, p) bf16 field; reads nothing
-    bound_ms, bound_by = bound(nbytes=N_OBS * N_LAT * N_LON * 2)
+    b = bound(nbytes=N_OBS * N_LAT * N_LON * 2,
+              calls=_gen_calls(N_OBS, N_LAT * N_LON))
     print('surrogate_field normal32 at {}: kernel {:.4f} ms, plain {:.3f} '
-          'ms, bound {:.4f} ms ({})'.format((N_OBS, N_LAT * N_LON), ms,
-                                            plain_ms, bound_ms, bound_by))
-    return {'max_abs_err': 0.0, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+          'ms, bound {:.4f} ms ({}; generation {:.4f} ms)'.format(
+              (N_OBS, N_LAT * N_LON), ms, plain_ms, b['bound_ms'],
+              b['bound_by'], b['generation_ms']))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
 
 
-def check_surrogate_gram(torch):
+def _gram_case(torch, seed, n, p, chunk_cols=None):
+    """K3 at (n, p) against its plain versions: normal32 within 1e-4 of
+    max|G| of the f64 plain version and of syrk(surrogate_field), mu, u
+    and mu.mu within 1e-5; rademacher bit-equal; G exactly symmetric and
+    the same bits on a second run.  Returns (normal32 G max abs error,
+    G rel error vs plain, vs syrk)."""
     from xmca_tpu_torch.ops.surrogate import (surrogate_field,
                                               surrogate_gram,
                                               surrogate_gram_reference)
     from xmca_tpu_torch.ops.syrk import pad_to, syrk
-    n, p = N_OBS, N_LAT * N_LON
-    G, mu, u, mumu = surrogate_gram(8, n, p, 'normal32', 'cuda')
-    Gr, mur, ur, mumur = surrogate_gram_reference(8, n, p, 'normal32',
+    kw = {} if chunk_cols is None else {'chunk_cols': chunk_cols}
+    G, mu, u, mumu = surrogate_gram(seed, n, p, 'normal32', 'cuda', **kw)
+    again = surrogate_gram(seed, n, p, 'normal32', 'cuda', **kw)
+    Gr, mur, ur, mumur = surrogate_gram_reference(seed, n, p, 'normal32',
                                                   'cuda')
     Xp = torch.zeros(pad_to(n, p), dtype=torch.bfloat16, device='cuda')
-    Xp[:n, :p] = surrogate_field(8, n, p, 'normal32', 'cuda')
+    Xp[:n, :p] = surrogate_field(seed, n, p, 'normal32', 'cuda')
     Gs = syrk(Xp)[:n, :n]
+    del Xp
     torch.cuda.synchronize()
     scale = float(Gr.abs().max())
     err = float((G - Gr).abs().max())
@@ -262,69 +346,176 @@ def check_surrogate_gram(torch):
     err_mu = float((mu - mur).abs().max()) / float(mur.abs().max())
     err_u = float((u - ur).abs().max()) / float(ur.abs().max())
     err_mumu = abs(float(mumu - mumur)) / float(mumur)
+    _check(err / scale <= 1e-4 and err_syrk <= 1e-4,
+           'surrogate_gram G off at {}: {:.2e}, {:.2e}'.format(
+               (n, p), err / scale, err_syrk))
+    _check(max(err_mu, err_u, err_mumu) <= 1e-5,
+           'surrogate_gram mu/u/mumu off at {}'.format((n, p)))
+    _check(torch.equal(G, G.T), 'surrogate_gram G not symmetric at {}'
+           .format((n, p)))
+    _check(all(torch.equal(a, b) for a, b in zip((G, mu, u, mumu), again)),
+           'surrogate_gram not the same bits twice at {}'.format((n, p)))
+    del Gr, Gs, again
+    for dist in ('rademacher', 'rademacher8'):
+        Gi = surrogate_gram(seed, n, p, dist, 'cuda', **kw)[0]
+        Gir = surrogate_gram_reference(seed, n, p, dist, 'cuda')[0]
+        torch.cuda.synchronize()
+        _check(torch.equal(Gi, Gir), 'surrogate_gram {} not bit-equal at {}'
+               .format(dist, (n, p)))
+    return err, err / scale, err_syrk, (err_mu, err_u, err_mumu)
+
+
+def check_surrogate_gram(torch):
+    from xmca_tpu_torch.ops.surrogate import (CHUNK_COLS, chunk_plan,
+                                              surrogate_field,
+                                              surrogate_gram,
+                                              surrogate_gram_reference)
+    from xmca_tpu_torch.ops.syrk import (TILE, pad_to, schedule, syrk,
+                                         workspace_tiles)
+    n, p = N_OBS, N_LAT * N_LON
+    err, rel, rel_syrk, (e_mu, e_u, e_mumu) = _gram_case(torch, 8, n, p)
     print('surrogate_gram normal32 at {}: G rel err {:.2e} vs plain (f64), '
           '{:.2e} vs syrk(surrogate_field) (tol 1e-4); mu {:.2e}, u {:.2e}, '
-          'mumu {:.2e} (tol 1e-5)'.format((n, p), err / scale, err_syrk,
-                                          err_mu, err_u, err_mumu))
-    _check(err / scale <= 1e-4 and err_syrk <= 1e-4,
-           'surrogate_gram G off')
-    _check(torch.equal(G, G.T), 'surrogate_gram G not symmetric')
-    _check(max(err_mu, err_u, err_mumu) <= 1e-5,
-           'surrogate_gram mu/u/mumu off')
-    Gi = surrogate_gram(8, n, p, 'rademacher', 'cuda')[0]
-    Gir = surrogate_gram_reference(8, n, p, 'rademacher', 'cuda')[0]
-    torch.cuda.synchronize()
-    _check(torch.equal(Gi, Gir), 'surrogate_gram rademacher not bit-equal')
-    print('surrogate_gram rademacher bit-equal to plain at {}'.format((n, p)))
-    del Gr, Gi, Gir
+          'mumu {:.2e} (tol 1e-5); symmetric, the same bits twice; '
+          'rademacher and rademacher8 bit-equal'.format(
+              (n, p), rel, rel_syrk, e_mu, e_u, e_mumu))
+    # chunk edges: p < C, p = C, p = 2C + 1 (a one-column last chunk), and
+    # n = 130 (a padded second tile row)
+    edges = [(n, 1000), (n, CHUNK_COLS), (n, 2 * CHUNK_COLS + 1),
+             (130, 2 * CHUNK_COLS + 1)]
+    for shape in edges:
+        _, r, rs, _ = _gram_case(torch, 12, *shape)
+        print('surrogate_gram at chunk edge {} (C = {}): G rel err {:.2e} '
+              'vs plain, {:.2e} vs syrk; symmetric, the same bits twice, '
+              '+-1 bit-equal'.format(shape, CHUNK_COLS, r, rs))
 
-    ms = _time_ms(torch, lambda: surrogate_gram(9, n, p, 'normal32',
-                                                'cuda'), 5)
+    # device memory beyond what the caller holds: G, the column sums, the
+    # slot and K1's split workspace (each a caching-allocator block, at
+    # most 2 MiB over its size), and the n-vector u and the scalars
+    n_pad = pad_to(n, p)[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    work = max(workspace_tiles(schedule(n_pad, w, 2, sms))
+               for _, w in chunk_plan(p)) * TILE * TILE * 4
+    parts = [n_pad * n_pad * 4, 4 * p, n_pad * CHUNK_COLS * 2, work]
+    ws_bound = sum(-(-b // 2 ** 21) * 2 ** 21 for b in parts) + 2 ** 16
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = surrogate_gram(9, n, p, 'normal32', 'cuda')
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    del out
+    print('surrogate_gram memory at {}: peak growth {:.1f} MB (G {:.1f} + '
+          'colsum {:.1f} + slot {:.1f} + split workspace {:.1f} MB; bound '
+          '{:.1f} MB; the stored bf16 field would take {:.1f} MB)'.format(
+              (n, p), growth / 1e6, *(b / 1e6 for b in parts),
+              ws_bound / 1e6, n * p * 2 / 1e6))
+    _check(growth <= ws_bound and growth < n * p * 2 / 4,
+           'surrogate_gram grew device memory by {} bytes'.format(growth))
+
+    chunk_ms = {c: _time_ms(torch, lambda: surrogate_gram(
+        9, n, p, 'normal32', 'cuda', chunk_cols=c), 10)
+        for c in (4096, 8192, 16384)}
+    # where one call's device time goes: generator, K1 and its split sums
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        surrogate_gram(9, n, p, 'normal32', 'cuda')
+        torch.cuda.synchronize()
+    print('surrogate_gram at {}, one call (torch.profiler): {}'.format(
+        (n, p), '; '.join('{} x{} {:.1f} us'.format(
+            _kernel_name(ev.key), ev.count, ev.self_device_time_total)
+            for ev in prof.key_averages() if ev.self_device_time_total)))
+    ms = chunk_ms[CHUNK_COLS]
+    pm1_ms = _time_ms(torch, lambda: surrogate_gram(
+        9, n, p, 'rademacher', 'cuda'), 10)
     plain_ms = _time_ms(torch, lambda: surrogate_gram_reference(
         9, n, p, 'normal32', 'cuda'), 3)
+    Xp = torch.zeros(pad_to(n, p), dtype=torch.bfloat16, device='cuda')
 
     def composite():
         Xp[:n, :p] = surrogate_field(9, n, p, 'normal32', 'cuda')
         return syrk(Xp)
     comp_ms = _time_ms(torch, composite, 5)
+    del Xp
     # the lower triangle of the (n, n) Gram of the generated (n, p) bf16
-    # field; writes G, mu and u
-    bound_ms, bound_by = bound(n * (n + 1) / 2 * p * 2, 'bf16',
-                               4 * (n * n + p + n))
-    print('surrogate_gram at {}: kernel {:.3f} ms, plain (f64 matmul) '
-          '{:.3f} ms, surrogate_field + pad copy + syrk bf16 {:.3f} ms, '
-          'bound {:.4f} ms ({})'.format((n, p), ms, plain_ms, comp_ms,
-                                        bound_ms, bound_by))
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
-            'field_plus_syrk_ms': comp_ms}
+    # field; writes G, mu and u; generates the field once
+    b = bound(n * (n + 1) / 2 * p * 2, 'bf16', 4 * (n * n + p + n),
+              _gen_calls(n, p))
+    print('surrogate_gram at {}: kernel {:.4f} ms (C = {}; {}), '
+          'rademacher (int8) {:.4f} ms; plain (f64 matmul) {:.3f} ms; '
+          'surrogate_field + pad copy + syrk bf16 {:.4f} ms; bound {:.4f} '
+          'ms ({}; generation {:.4f} ms)'.format(
+              (n, p), ms, CHUNK_COLS, ', '.join(
+                  'C = {}: {:.4f} ms'.format(c, t)
+                  for c, t in chunk_ms.items()),
+              pm1_ms, plain_ms, comp_ms, b['bound_ms'], b['bound_by'],
+              b['generation_ms']))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                field_plus_syrk_ms=comp_ms, rademacher_ms=pm1_ms,
+                chunk_ms={str(c): t for c, t in chunk_ms.items()},
+                memory_growth_mb=growth / 1e6, **b)
+
+
+def project_registers():
+    """Registers of each K4 kernel, from this process's -Xptxas -v log
+    (empty when the library was not rebuilt here)."""
+    import re
+    from xmca_tpu_torch.ops import _build
+    regs, fn = {}, None
+    for line in _build.build_log().splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r'Used (\d+) registers', line)
+        if m and fn and 'project_kernel' in fn:
+            regs[fn] = int(m.group(1))
+    return regs
 
 
 def check_surrogate_project(torch):
-    from xmca_tpu_torch.ops.surrogate import (surrogate_project,
+    from xmca_tpu_torch.ops.surrogate import (surrogate_field,
+                                              surrogate_project,
                                               surrogate_project_reference)
     n, p, m = N_OBS, N_LAT * N_LON, 2 * N_ROT
     gen = torch.Generator(device='cuda').manual_seed(4)
     S = torch.randn((n, m), generator=gen, device='cuda')
     P = surrogate_project(10, S, n, p, 'normal32', 'cuda')
+    again = surrogate_project(10, S, n, p, 'normal32', 'cuda')
     ref = surrogate_project_reference(10, S, n, p, 'normal32', 'cuda')
     torch.cuda.synchronize()
     err = float((P - ref).abs().max())
     rel = err / float(ref.abs().max())
     _check(rel <= 1e-5, 'surrogate_project rel err {:.2e} > 1e-5'
            .format(rel))
+    _check(torch.equal(P, again), 'surrogate_project not the same bits '
+           'twice')
+    regs = project_registers()
+    _check(all(r <= 96 for r in regs.values()),
+           'surrogate_project kernels above 96 registers: {}'.format(regs))
     ms = _time_ms(torch, lambda: surrogate_project(
         10, S, n, p, 'normal32', 'cuda'), 20)
     plain_ms = _time_ms(torch, lambda: surrogate_project_reference(
         10, S, n, p, 'normal32', 'cuda'), 3)
+    Sb = S.to(torch.bfloat16)
+    # the yardstick the port never calls: store the field, then one
+    # library product
+    comp_ms = _time_ms(torch, lambda: torch.mm(
+        surrogate_field(10, n, p, 'normal32', 'cuda').T, Sb,
+        out_dtype=torch.float32), 10)
     # P = X^T S: 2 n p m operations on bf16 values (the generated field
-    # and S rounded to bf16); reads S, writes P
-    bound_ms, bound_by = bound(2.0 * n * p * m, 'bf16', 4 * (n * m + p * m))
-    print('surrogate_project at {} x m={}: rel err {:.2e} (tol 1e-5); '
-          'kernel {:.4f} ms, plain (f64 matmul) {:.3f} ms, bound {:.4f} ms '
-          '({})'.format((n, p), m, rel, ms, plain_ms, bound_ms, bound_by))
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+    # and S rounded to bf16); reads S, writes P; generates the field once
+    b = bound(2.0 * n * p * m, 'bf16', 4 * (n * m + p * m),
+              _gen_calls(n, p))
+    print('surrogate_project at {} x m={}: rel err {:.2e} (tol 1e-5), the '
+          'same bits twice; registers {} (max 96); kernel {:.4f} ms, plain '
+          '(f64 matmul) {:.3f} ms, surrogate_field + torch.mm(X.T, '
+          'S.bfloat16(), out_dtype=torch.float32) {:.4f} ms, bound {:.4f} '
+          'ms ({}; generation {:.4f} ms)'.format(
+              (n, p), m, rel, sorted(regs.values()) or 'not rebuilt here',
+              ms, plain_ms, comp_ms, b['bound_ms'], b['bound_by'],
+              b['generation_ms']))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                field_plus_mm_ms=comp_ms, **b)
 
 
 def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
@@ -353,6 +544,21 @@ def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
         return np.zeros((0, kw['n_rot'])), np.zeros(0), 0, wall
     return (torch.stack(out).cpu().numpy(), torch.stack(totals).cpu().numpy(),
             len(out), wall)
+
+
+def profile_runs(torch, fn, n_vars, n_runs):
+    """Device kernel time per run of ``fn`` (torch.profiler's CUDA
+    activity over ``n_runs`` runs) and the kernels that take most of it:
+    (ms per run, [(name, calls per run, ms per run), ...])."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gen_runs(torch, fn, N_OBS, n_vars, n_runs, 'cuda', rotated=True,
+                 n_rot=N_ROT, **ENSEMBLE)
+    rows = [(ev.key, ev.count / n_runs,
+             ev.self_device_time_total / 1e3 / n_runs)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    return sum(r[2] for r in rows), rows[:6]
 
 
 def gen_path(torch):
@@ -387,6 +593,16 @@ def gen_path(torch):
     _check(np.isfinite(var_g).all(), 'non-finite generated variances')
     _check(abs(g - t) < 2.0 * spread,
            'generated and +-1 nulls disagree: {:.2f} vs {:.2f}'.format(g, t))
+    for name, fn, wall in (('generated', fast_surrogate_variance_gen, wall_g),
+                           ('+-1', fast_surrogate_variance_tri, wall_t)):
+        dev_ms, top = profile_runs(torch, fn, n_vars, 4)
+        print('{} run, torch.profiler over 4 runs: device kernel time '
+              '{:.2f} ms/run ({:.0f}% of its {:.1f} ms unprofiled wall); '
+              'top: {}'.format(name, dev_ms, 100 * dev_ms / (1e3 * wall),
+                               1e3 * wall, '; '.join(
+                                   '{} x{:g} {:.3f} ms'.format(
+                                       _kernel_name(k), c, ms)
+                                   for k, c, ms in top)))
     return launches
 
 
@@ -487,6 +703,17 @@ def main():
             print('  ' + line.strip())
     print('syrk: {} bytes of dynamic shared memory a block'.format(
         _build.library().xmca_syrk_smem_bytes()))
+    clock = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(clock.stdout.strip().splitlines()[0])
+    ISSUE['lanes_per_s'] = SM_ISSUE_LANES * mhz * 1e6
+    print('Philox4x32-10: {} SASS instructions a call in this build '
+          '(constant {}, counted 2026-10-16); SM clock max {:.0f} MHz: '
+          'issue rate {:.3e} lane-instructions/s'.format(
+              philox_sass_per_call(), PHILOX_SASS_PER_CALL, mhz,
+              ISSUE['lanes_per_s']))
     print('card: {} | torch {} | CUDA {} | allow_tf32 matmul={} cudnn={}'
           .format(card, torch.__version__, torch.version.cuda,
                   torch.backends.cuda.matmul.allow_tf32,

@@ -20,10 +20,12 @@ import torch
 from xmca_tpu_torch.core import fastpath as tfast
 from xmca_tpu_torch.ops import _build
 from xmca_tpu_torch.ops.surrogate import (
-    GEN_DISTS, GEN_STREAM, bits_to_draw, centered_gram_from_raw,
-    gram_from_field, philox4x32_10, project_from_field, surrogate_field,
-    surrogate_field_reference, surrogate_gram, surrogate_gram_reference,
-    surrogate_project, surrogate_project_reference, words_reference)
+    CHUNK_COLS, GEN_DISTS, GEN_STREAM, bits_to_draw, centered_gram_from_raw,
+    chunk_plan, gram_from_chunks, gram_from_field, philox4x32_10,
+    project_from_field, surrogate_field, surrogate_field_reference,
+    surrogate_gram, surrogate_gram_reference, surrogate_project,
+    surrogate_project_reference, words_reference)
+from xmca_tpu_torch.ops.syrk import COL_PAD
 
 N_OBS = 64
 N_VARS = (300, 260)
@@ -126,6 +128,64 @@ def test_gram_from_field_matches_jax(monkeypatch, dist):
                                rtol=0)
     np.testing.assert_allclose(centered_gram_from_raw(G, u, mumu).numpy(),
                                np.asarray(Gcj), atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.parametrize('p, chunk_cols', [
+    (1, 128), (128, 128), (129, 128), (1000, 256), (1024, 256),
+    (100000, CHUNK_COLS), (8192, 8192), (16385, 8192), (300, 8192),
+    (5000, 4096)])
+def test_chunk_plan_covers_columns_once_in_order(p, chunk_cols):
+    plan = chunk_plan(p, chunk_cols)
+    p_pad = -(-p // COL_PAD) * COL_PAD
+    assert plan[0][0] == 0
+    assert sum(w for _, w in plan) == p_pad
+    for (c0, w), (c1, _) in zip(plan, plan[1:]):
+        assert c1 == c0 + w and w == chunk_cols
+    assert all(0 < w <= chunk_cols and w % COL_PAD == 0 for _, w in plan)
+    assert len(plan) == -(-p // chunk_cols)
+    last0, last_w = plan[-1]
+    assert last0 < p <= last0 + last_w
+
+
+@pytest.mark.parametrize('chunk_cols', [0, 100, -128])
+def test_chunk_plan_refuses_bad_chunks(chunk_cols):
+    with pytest.raises(ValueError):
+        chunk_plan(1000, chunk_cols)
+
+
+@pytest.mark.parametrize('dist', ['normal32', 'rademacher', 'rademacher8'])
+def test_gram_from_chunks_matches_jax(monkeypatch, dist):
+    """The kernel's order of work in plain PyTorch (f32 chunk Grams summed
+    in order, column sums per chunk, u and mu.mu from G) against the JAX
+    package's surrogate_gram: four chunks of 256 columns, the last ragged.
+    G within 1e-5 of max|G|, mu and u within 1e-6 (u of max|u|); +-1
+    draws bit-equal (every sum is an exact integer).  mu.mu = 1^T G 1 / n^2
+    (~14 here) cancels sums of |G| ~ 7e4, so it carries G's f32 rounding
+    (7e-7 of it at this seed) where JAX's mu @ mu does not: each side is
+    held within 1e-6 of the exact f64 value, so they agree within 2e-6."""
+    n, p, seed = 70, 1000, 23
+    w = _words(4, (n, p))
+    jsur, calls = _patch_jax_field(monkeypatch, {seed: w})
+    Gj, muj, uj, mumuj = (np.asarray(a) for a in
+                          jsur.surrogate_gram(seed, n, p, dist=dist))
+    assert calls == [seed]
+    assert len(chunk_plan(p, 256)) == 4
+    X = bits_to_draw(_torch_words(w), dist)
+    G, mu, u, mumu = (a.numpy() for a in gram_from_chunks(X, 256))
+    assert G.dtype == mu.dtype == u.dtype == np.float32
+    if dist == 'normal32':
+        scale = np.abs(Gj).max()
+        np.testing.assert_allclose(G, Gj, atol=1e-5 * scale, rtol=0)
+        np.testing.assert_allclose(mu, muj, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(u, uj, atol=1e-6 * np.abs(uj).max(),
+                                   rtol=0)
+        mu64 = X.to(torch.float64).mean(dim=0)
+        exact = float(mu64 @ mu64)
+        np.testing.assert_allclose(mumu, exact, rtol=1e-6)
+        np.testing.assert_allclose(mumuj, exact, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(G, Gj)
+        np.testing.assert_array_equal(mu * n, muj * n)
 
 
 def test_project_from_field_matches_jax(monkeypatch):
@@ -327,7 +387,7 @@ def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
     newer than the library triggers a rebuild (here: the call for nvcc,
     which this machine lacks)."""
     names = {os.path.basename(h) for h in _build.headers()}
-    assert {'philox.cuh', 'gen_draw.cuh', 'tri_gram.cuh'} <= names
+    assert names == {'philox.cuh', 'gen_draw.cuh', 'syrk.cuh'}
     newest = max(os.path.getmtime(f)
                  for f in _build.sources() + _build.headers())
     lib = tmp_path / 'lib.so'
@@ -361,8 +421,12 @@ def test_field_kernel_matches_plain(cuda_device, dist, n, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n, p', [(96, 400), (200, 3000), (130, 1001)])
+@pytest.mark.parametrize('n, p', [
+    (96, 400), (200, 3000), (130, 1001), (130, 100), (200, CHUNK_COLS),
+    (130, 2 * CHUNK_COLS + 1)])
 def test_gram_kernel_matches_plain(cuda_device, n, p):
+    """Chunk edges: p < 128, p = C, p = 2C + 1 (a one-column last
+    chunk) and n = 130 (a padded second tile row)."""
     G, mu, u, mumu = surrogate_gram(2, n, p, 'normal32', cuda_device)
     Gr, mur, ur, mumur = surrogate_gram_reference(2, n, p, 'normal32',
                                                   cuda_device)
@@ -373,14 +437,34 @@ def test_gram_kernel_matches_plain(cuda_device, n, p):
     assert float((mu - mur).abs().max()) <= 1e-6
     assert float((u - ur).abs().max()) <= 1e-5 * float(ur.abs().max())
     assert abs(float(mumu - mumur)) <= 1e-5 * float(mumur)
-    Gi, _, _, _ = surrogate_gram(2, n, p, 'rademacher', cuda_device)
-    Gir, _, _, _ = surrogate_gram_reference(2, n, p, 'rademacher',
-                                            cuda_device)
-    assert torch.equal(Gi, Gir)
+    again = surrogate_gram(2, n, p, 'normal32', cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip((G, mu, u, mumu), again))
+    for dist in ('rademacher', 'rademacher8'):
+        Gi, mui, _, _ = surrogate_gram(2, n, p, dist, cuda_device)
+        Gir, muir, _, _ = surrogate_gram_reference(2, n, p, dist,
+                                                   cuda_device)
+        assert torch.equal(Gi, Gir)
+        assert float((mui - muir).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m', [1, 20, 37])
+@pytest.mark.parametrize('chunk_cols', [128, 256, 1024])
+def test_gram_kernel_chunk_sizes_agree(cuda_device, chunk_cols):
+    """Any chunk width gives the plain chunked sums (rademacher exactly)."""
+    n, p = 200, 3000
+    G = surrogate_gram(6, n, p, 'normal32', cuda_device,
+                       chunk_cols=chunk_cols)[0]
+    Gr = gram_from_chunks(surrogate_field(6, n, p, 'normal32', cuda_device),
+                          chunk_cols)[0]
+    assert float((G - Gr).abs().max()) <= 1e-5 * float(Gr.abs().max())
+    Gi = surrogate_gram(6, n, p, 'rademacher8', cuda_device,
+                        chunk_cols=chunk_cols)[0]
+    assert torch.equal(Gi, surrogate_gram_reference(6, n, p, 'rademacher8',
+                                                    cuda_device)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m', [1, 20, 37, 64])
 def test_project_kernel_matches_plain(cuda_device, m):
     n, p = 200, 3001
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -389,3 +473,5 @@ def test_project_kernel_matches_plain(cuda_device, m):
     ref = surrogate_project_reference(4, S, n, p, 'normal32', cuda_device)
     torch.cuda.synchronize()
     assert float((P - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(P, surrogate_project(4, S, n, p, 'normal32',
+                                            cuda_device))

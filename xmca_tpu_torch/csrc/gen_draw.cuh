@@ -36,16 +36,21 @@ __device__ __forceinline__ uint4 gen_words(uint32_t seed, int row,
                        seed, kGenStream);
 }
 
-// The value of one word (bf16-exact, held in f32); rademacher8 gives the
-// same +-1 values as rademacher.
-__device__ __forceinline__ float gen_value(uint32_t w, int dist) {
-  if (dist == kNormal32) {
-    const float v = static_cast<float>(__popc(w) - 16) * kInvSqrt8;
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
+// The value of one word before its rounding to bf16: normal32's f32
+// product, which bf16 then rounds once; the other maps are exact.
+__device__ __forceinline__ float gen_value_f32(uint32_t w, int dist) {
+  if (dist == kNormal32)
+    return static_cast<float>(__popc(w) - 16) * kInvSqrt8;
   if (dist == kNormal16)
     return static_cast<float>(__popc(w & 0xFFFFu) - 8) * 0.5f;
   return (w & 1u) ? 1.0f : -1.0f;
+}
+
+// The value of one word (bf16-exact, held in f32); rademacher8 gives the
+// same +-1 values as rademacher.
+__device__ __forceinline__ float gen_value(uint32_t w, int dist) {
+  const float v = gen_value_f32(w, dist);
+  return dist == kNormal32 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 // The four values of one Philox call for the columns col .. col + 3;
@@ -62,6 +67,25 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo)))
       | (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
          << 16);
+}
+
+// The four values of one Philox call for the columns col .. col + 3 as
+// packed bf16 (columns >= p are 0), each rounded once from gen_value_f32
+// with one two-value conversion a pair: the bits of gen_values4 +
+// bf16_pair in fewer instructions.
+__device__ __forceinline__ uint2 gen_bf16x4(uint4 w, int col, int p,
+                                            int dist) {
+  float x[4] = {gen_value_f32(w.x, dist), gen_value_f32(w.y, dist),
+                gen_value_f32(w.z, dist), gen_value_f32(w.w, dist)};
+  if (col + 4 > p) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e >= p) x[e] = 0.0f;
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 }  // namespace xmca

@@ -37,14 +37,21 @@
 //   width without a fold, ~1.7e-5 with this one (PERF.md).
 // * every value is written to G[i, j] and G[j, i], so G is exactly
 //   symmetric, and no atomics are used, so every run gives the same bits.
-#include <cuda.h>
-#include <cuda_runtime.h>
+// * an accumulate mode (syrk.cuh) for surrogate_gram.cu, which runs this
+//   kernel once per generated column chunk of one field: the lower
+//   triangle adds its value to what G holds (each element has one owner,
+//   so no atomics) and the mirror is written by the last chunk only.  The
+//   chunks run in order on one stream, so the sum over chunks has a fixed
+//   order: the same bits on every run, and G exactly symmetric.
+#include "syrk.cuh"
+
 #include <dlfcn.h>
-#include <stdint.h>
 
 #include <type_traits>
 
 namespace {
+
+using xmca::SyrkSched;
 
 constexpr int kTile = 128;                       // output tile rows == cols
 constexpr int kBlockBytes = 128;                 // contraction bytes a stage
@@ -58,10 +65,6 @@ constexpr int kTileElems = kTile * kTile;
 // bf16: contraction blocks per chunk folded into the f32 total (each
 // fold waits for the wgmma queue to drain)
 constexpr int kFoldBlocks = 4;
-
-struct Sched {
-  int n_pad, kblocks, dp_tiles, split_tiles, splits;
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -234,13 +237,13 @@ struct Unit {
   int t, k0, k1, slot;
 };
 
-__device__ __forceinline__ int unit_count(const Sched& s) {
+__device__ __forceinline__ int unit_count(const SyrkSched& s) {
   const int b = blockIdx.x, g = gridDim.x;
   const int whole = b < s.dp_tiles ? (s.dp_tiles - b + g - 1) / g : 0;
   return whole + (b < s.split_tiles * s.splits ? 1 : 0);
 }
 
-__device__ __forceinline__ Unit unit_of(const Sched& s, int u) {
+__device__ __forceinline__ Unit unit_of(const SyrkSched& s, int u) {
   const int b = blockIdx.x;
   if (b + u * static_cast<int>(gridDim.x) < s.dp_tiles) {
     return {b + u * static_cast<int>(gridDim.x), 0, s.kblocks, -1};
@@ -250,10 +253,12 @@ __device__ __forceinline__ Unit unit_of(const Sched& s, int u) {
           (i + 1) * s.kblocks / s.splits, b};
 }
 
-template <bool kInt8>
+// kAccumulate: the epilogue of surrogate_gram.cu's chunks (s.accumulate,
+// s.mirror); without it the main path's store-and-mirror.
+template <bool kInt8, bool kAccumulate>
 __global__ void __launch_bounds__(kThreads, 1)
 syrk_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ G,
-            uint32_t* __restrict__ work, const Sched s) {
+            uint32_t* __restrict__ work, const SyrkSched s) {
   using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -352,8 +357,27 @@ syrk_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ G,
       }
     }
 
-    // epilogue: a whole tile goes to G and its mirror, a piece to its
+    // epilogue: a whole tile goes to G and its mirror (kAccumulate: added
+    // to G; the mirror written in mirror mode only), a piece to its
     // workspace tile (raw s32 or f32 bits)
+    if constexpr (kAccumulate) {
+      if constexpr (kInt8) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) total[i] = static_cast<float>(acc[i]);
+      }
+      if (w.slot < 0 && s.accumulate) {
+        // every load before the first store, so their latencies overlap
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int r = row0 + 8 * ((i >> 1) & 1);
+          const int c = col0 + 8 * (i >> 2) + (i & 1);
+          if (!diag || c <= r) {
+            total[i] += G[(static_cast<size_t>(ti) * kTile + r) * s.n_pad +
+                          static_cast<size_t>(tj) * kTile + c];
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int r = row0 + 8 * ((i >> 1) & 1);
@@ -361,7 +385,7 @@ syrk_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ G,
       float v;
       uint32_t bits;
       if constexpr (kInt8) {
-        v = static_cast<float>(acc[i]);
+        v = kAccumulate ? total[i] : static_cast<float>(acc[i]);
         bits = static_cast<uint32_t>(acc[i]);
       } else {
         v = total[i];
@@ -374,39 +398,43 @@ syrk_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ G,
         const size_t gr = static_cast<size_t>(ti) * kTile + r;
         const size_t gc = static_cast<size_t>(tj) * kTile + c;
         G[gr * s.n_pad + gc] = v;
-        G[gc * s.n_pad + gr] = v;
+        if (!kAccumulate || s.mirror) G[gc * s.n_pad + gr] = v;
       }
     }
   }
 }
 
 // Sums the `splits` pieces of each split tile in order 0, 1, ... and
-// writes the tile and its mirror; one thread per element.
+// stores (or adds) the tile and, in mirror mode, its mirror; one thread
+// per element.
 template <bool kInt8>
 __global__ void __launch_bounds__(256)
 split_sum_kernel(const uint32_t* __restrict__ work, float* __restrict__ G,
-                 int n_pad, int first_tile, int splits) {
+                 const SyrkSched s) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = e / kTile, c = e % kTile;
   int ti, tj;
-  tile_of(first_tile + blockIdx.y, ti, tj);
+  tile_of(s.dp_tiles + blockIdx.y, ti, tj);
   if (ti == tj && c > r) return;
   const uint32_t* p =
-      work + static_cast<size_t>(blockIdx.y) * splits * kTileElems + e;
+      work + static_cast<size_t>(blockIdx.y) * s.splits * kTileElems + e;
   float v;
   if constexpr (kInt8) {
     int sum = 0;
-    for (int i = 0; i < splits; ++i) sum += static_cast<int>(p[i * kTileElems]);
+    for (int i = 0; i < s.splits; ++i)
+      sum += static_cast<int>(p[i * kTileElems]);
     v = static_cast<float>(sum);
   } else {
     float sum = 0.0f;
-    for (int i = 0; i < splits; ++i) sum += __uint_as_float(p[i * kTileElems]);
+    for (int i = 0; i < s.splits; ++i)
+      sum += __uint_as_float(p[i * kTileElems]);
     v = sum;
   }
   const size_t gr = static_cast<size_t>(ti) * kTile + r;
   const size_t gc = static_cast<size_t>(tj) * kTile + c;
-  G[gr * n_pad + gc] = v;
-  G[gc * n_pad + gr] = v;
+  if (s.accumulate) v += G[gr * s.n_pad + gc];
+  G[gr * s.n_pad + gc] = v;
+  if (s.mirror) G[gc * s.n_pad + gr] = v;
 }
 
 using EncodeTiled = CUresult (*)(
@@ -429,22 +457,67 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <bool kInt8>
-int launch(const CUtensorMap& map, float* G, uint32_t* work, const Sched& s,
-           int grid, cudaStream_t stream) {
+template <bool kInt8, bool kAccumulate>
+int launch(const CUtensorMap& map, float* G, uint32_t* work,
+           const SyrkSched& s, int grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      syrk_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      syrk_kernel<kInt8, kAccumulate>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  syrk_kernel<kInt8><<<grid, kThreads, kSmemBytes, stream>>>(map, G, work, s);
+  syrk_kernel<kInt8, kAccumulate><<<grid, kThreads, kSmemBytes, stream>>>(
+      map, G, work, s);
   err = cudaGetLastError();
   if (err != cudaSuccess || s.split_tiles == 0) return static_cast<int>(err);
   split_sum_kernel<kInt8><<<dim3(kTileElems / 256, s.split_tiles), 256, 0,
-                            stream>>>(work, G, s.n_pad, s.dp_tiles, s.splits);
+                            stream>>>(work, G, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+namespace xmca {
+
+int syrk_tensor_map(CUtensorMap* map, const void* X, int n_pad, int ld,
+                    int is_int8) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) {
+    return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  }
+  const int elem = is_int8 ? 1 : 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ld),
+                              static_cast<cuuint64_t>(n_pad)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBlockBytes / elem),
+                             static_cast<cuuint32_t>(kTile)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(
+      map, is_int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(X), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(res == CUDA_SUCCESS ? cudaSuccess
+                                              : cudaErrorInvalidValue);
+}
+
+int syrk_launch(const CUtensorMap& map, float* G, uint32_t* work,
+                const SyrkSched& s, int grid, int is_int8,
+                cudaStream_t stream) {
+  // the main path's launch (store and mirror) runs the kernel without the
+  // accumulate epilogue, whose code it does not need
+  const bool store = !s.accumulate && s.mirror;
+  if (is_int8) {
+    return store ? launch<true, false>(map, G, work, s, grid, stream)
+                 : launch<true, true>(map, G, work, s, grid, stream);
+  }
+  return store ? launch<false, false>(map, G, work, s, grid, stream)
+               : launch<false, true>(map, G, work, s, grid, stream);
+}
+
+}  // namespace xmca
+
+// Dynamic shared memory of the syrk kernel (bytes).
+extern "C" int xmca_syrk_smem_bytes() { return kSmemBytes; }
 
 // G (n_pad, n_pad) f32 <- X X^T for X (n_pad, p_pad) int8 (is_int8=1) or
 // bf16 (is_int8=0), row-major and contiguous, on the schedule of
@@ -454,36 +527,15 @@ int launch(const CUtensorMap& map, float* G, uint32_t* work, const Sched& s,
 // aligned X and (int8) no int32 overflow.  Returns a cudaError_t: the
 // launch's, or cudaErrorSharedObjectSymbolNotFound /
 // cudaErrorInvalidValue when the tensor map cannot be made.
-// Dynamic shared memory of the syrk kernel (bytes).
-extern "C" int xmca_syrk_smem_bytes() { return kSmemBytes; }
-
 extern "C" int xmca_syrk(const void* X, void* G, void* work, int n_pad,
                          int p_pad, int is_int8, int kblocks, int grid,
                          int dp_tiles, int split_tiles, int splits,
                          void* stream) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) {
-    return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  }
-  const int elem = is_int8 ? 1 : 2;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p_pad),
-                              static_cast<cuuint64_t>(n_pad)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p_pad) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBlockBytes / elem),
-                             static_cast<cuuint32_t>(kTile)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res = encode(
-      &map, is_int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(X), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (res != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  const Sched s{n_pad, kblocks, dp_tiles, split_tiles, splits};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* g = static_cast<float*>(G);
-  uint32_t* w = static_cast<uint32_t*>(work);
-  return is_int8 ? launch<true>(map, g, w, s, grid, st)
-                 : launch<false>(map, g, w, s, grid, st);
+  const int err = xmca::syrk_tensor_map(&map, X, n_pad, p_pad, is_int8);
+  if (err != 0) return err;
+  const SyrkSched s{n_pad, kblocks, dp_tiles, split_tiles, splits, 0, 1};
+  return xmca::syrk_launch(map, static_cast<float*>(G),
+                           static_cast<uint32_t*>(work), s, grid, is_int8,
+                           static_cast<cudaStream_t>(stream));
 }

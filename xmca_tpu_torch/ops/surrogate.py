@@ -38,17 +38,21 @@ Each kernel has a plain PyTorch version here (int64 arithmetic on
 it for a CPU device and launches the kernel (counting the launch) or
 raises for a CUDA one.
 """
+import ctypes
+
 import torch
 
 from xmca_tpu_torch.ops import _build
-from xmca_tpu_torch.ops.syrk import COL_PAD, ROW_PAD
+from xmca_tpu_torch.ops.syrk import (COL_PAD, ROW_PAD, TILE, _sm_count,
+                                     schedule, workspace_tiles)
 
 __all__ = ['sign_field_sums', 'sign_field_sums_reference', 'philox4x32_10',
            'SIGN_SALT', 'SIGN_STREAM', 'GEN_STREAM', 'GEN_DISTS',
            'words_reference', 'bits_to_draw', 'surrogate_field',
            'surrogate_field_reference', 'surrogate_gram',
-           'surrogate_gram_reference', 'gram_from_field',
-           'centered_gram_from_raw', 'surrogate_project',
+           'surrogate_gram_reference', 'gram_from_field', 'gram_from_chunks',
+           'chunk_plan', 'CHUNK_COLS', 'centered_gram_from_raw',
+           'surrogate_project',
            'surrogate_project_reference', 'project_from_field']
 
 SIGN_SALT = 0x53474E53           # 'SGNS', the TPU kernel's salt
@@ -57,7 +61,11 @@ GEN_STREAM = 1
 # order = the kernels' dist ids (csrc/gen_draw.cuh)
 GEN_DISTS = ('normal32', 'normal16', 'rademacher', 'rademacher8')
 GROUP = 128                      # columns per Philox output
-_GEN_TILE = 64                   # surrogate_gram's Gram tile (rows)
+# surrogate_gram's column chunk: a multiple of COL_PAD; the fastest of
+# 4096, 8192 and 16384 on the card (PERF.md)
+CHUNK_COLS = 16384
+# +-1 distributions, whose Gram runs on K1's int8 path
+_PM1_DISTS = ('rademacher', 'rademacher8')
 _INV_SQRT8 = 0.3535533905932738
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -255,37 +263,92 @@ def surrogate_gram_reference(seed, n, p, dist, device='cpu'):
                                                      device))
 
 
+def chunk_plan(p, chunk_cols=CHUNK_COLS):
+    """The column chunks :func:`surrogate_gram` walks for a p-column
+    field: ``(first column, width)`` pairs in order, covering
+    ``[0, p_pad)`` once (``p_pad`` = p rounded up to ``COL_PAD``).  Every
+    width is a multiple of ``COL_PAD``, at most ``chunk_cols``; the last
+    chunk is ragged, its columns ``>= p`` zero in the kernel."""
+    if chunk_cols <= 0 or chunk_cols % COL_PAD:
+        raise ValueError('chunk_cols must be a positive multiple of {}, got '
+                         '{}'.format(COL_PAD, chunk_cols))
+    p_pad = -(-p // COL_PAD) * COL_PAD
+    return [(c0, min(chunk_cols, p_pad - c0))
+            for c0 in range(0, p_pad, chunk_cols)]
+
+
+def _raw_gram_terms(G, colsum, n):
+    """``(G, mu, u, mumu)`` from the raw Gram and the column sums:
+    ``u = G 1 / n`` and ``mu . mu = 1^T G 1 / n^2`` are ``X mu`` and
+    ``mu . mu`` by exact algebra (``X mu = X X^T 1 / n``)."""
+    u = torch.sum(G, dim=1).div_(n)
+    return G, colsum.div_(n), u, torch.sum(u) / n
+
+
+def gram_from_chunks(X, chunk_cols=CHUNK_COLS):
+    """Plain version of the kernel's order of work for a materialized
+    (n, p) field: f32 ``X_c X_c^T`` summed over the chunks of
+    :func:`chunk_plan` in order, the column sums chunk by chunk, and u
+    and mu . mu from G as :func:`surrogate_gram` takes them."""
+    n, p = X.shape
+    G = torch.zeros((n, n), dtype=torch.float32, device=X.device)
+    colsum = torch.empty((p,), dtype=torch.float32, device=X.device)
+    for c0, width in chunk_plan(p, chunk_cols):
+        Xc = X[:, c0:c0 + width].to(torch.float32)
+        G += Xc @ Xc.T
+        colsum[c0:c0 + width] = Xc.sum(dim=0)
+    return _raw_gram_terms(G, colsum, n)
+
+
 def centered_gram_from_raw(G, u, mumu):
     """Temporal Gram of the centered field from the raw accumulators:
     ``(X - 1 mu^T)(X - 1 mu^T)^T = G - u 1^T - 1 u^T + (mu.mu) 1 1^T``."""
     return G - u[:, None] - u[None, :] + mumu
 
 
-def surrogate_gram(seed, n, p, dist, device):
+def surrogate_gram(seed, n, p, dist, device, chunk_cols=CHUNK_COLS):
     """Raw temporal Gram of the generated (n, p) field of ``seed``, the
-    field never stored: ``(G (n, n), mu (p,), u (n,), mumu ())``, f32,
-    as :func:`gram_from_field` defines them.
+    field never stored whole: ``(G (n, n), mu (p,), u (n,), mumu ())``,
+    f32, as :func:`gram_from_field` defines them.
 
-    The kernel forms ``G`` (bf16 draws, f32 sums) and the column sums;
-    ``u = G 1 / n`` and ``mu . mu = 1^T G 1 / n^2`` are the same
-    quantities by exact algebra (``X mu = X X^T 1 / n``).
+    The kernel walks the columns in the chunks of :func:`chunk_plan`:
+    each chunk is generated once into an (n_pad, chunk_cols) workspace
+    (int8 for +-1 draws, else bf16) with its column sums, and K1's kernel
+    adds its Gram into ``G`` (f32 sums), chunk after chunk.  Device
+    memory beyond the outputs is that workspace and K1's split
+    workspace, whatever p is.  ``u`` and ``mu . mu`` come from ``G``
+    (:func:`gram_from_chunks` does the same in plain PyTorch).
     """
     device = _gen_device(device, 'surrogate_gram')
     _check_gen(n, p, dist)
+    plan = chunk_plan(p, chunk_cols)
     if device.type == 'cpu':
         return surrogate_gram_reference(seed, n, p, dist, device)
     lib = _build.library()
-    n_pad = -(-n // _GEN_TILE) * _GEN_TILE
+    n_pad = -(-n // ROW_PAD) * ROW_PAD
+    pm1 = dist in _PM1_DISTS
+    ld = plan[0][1]
+    sms = _sm_count(torch.cuda.current_device() if device.index is None
+                    else device.index)
+    scheds = [schedule(n_pad, width, 1 if pm1 else 2, sms)
+              for _, width in plan]
+    rows = [v for (c0, width), s in zip(plan, scheds)
+            for v in (c0, width, s.kblocks, s.grid, s.dp_tiles,
+                      s.split_tiles, s.splits)]
     G = torch.empty((n_pad, n_pad), dtype=torch.float32, device=device)
     colsum = torch.empty((p,), dtype=torch.float32, device=device)
-    err = lib.xmca_surrogate_gram(G.data_ptr(), colsum.data_ptr(), n, p,
-                                  n_pad, int(seed) & _MASK32,
-                                  GEN_DISTS.index(dist), _build.stream_of(G))
+    slot = torch.empty((n_pad, ld), dtype=torch.int8 if pm1
+                       else torch.bfloat16, device=device)
+    work = torch.empty((max(workspace_tiles(s) for s in scheds), TILE,
+                        TILE), dtype=torch.int32, device=device)
+    err = lib.xmca_surrogate_gram(
+        G.data_ptr(), colsum.data_ptr(), slot.data_ptr(), work.data_ptr(),
+        n, p, n_pad, ld, int(pm1), int(seed) & _MASK32,
+        GEN_DISTS.index(dist), (ctypes.c_int * len(rows))(*rows), len(plan),
+        _build.stream_of(G))
     _build.check(err, 'surrogate_gram')
     _build.LAUNCHES['surrogate_gram'] += 1
-    G = G[:n, :n]
-    u = torch.sum(G, dim=1) / n
-    return G, colsum / n, u, torch.sum(u) / n
+    return _raw_gram_terms(G[:n, :n], colsum, n)
 
 
 def project_from_field(X, S):
