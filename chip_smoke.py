@@ -19,9 +19,25 @@
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
    solve(complexify=True) -> rotate(10) -> rule_n(N_RUNS)``, with the
    kernels' launch counters reset just before and read just after;
-4. runs the same path at a small size on the card and on the CPU (the
-   plain versions, with the same random bits) and compares them;
-5. drives the generated Rule-N surrogate
+4. ``result_path``: every result getter (EOFs, PCs, amplitude and phase,
+   both correlation patterns, reconstruction, ``fields``, ``predict``,
+   ``scf``, rotation and correlation matrices) on the main path's model,
+   with the one-time materialization of the deferred complex fields
+   timed on its own; checks shapes, finiteness, ``predict`` on the
+   training steps against ``pcs`` and the reconstruction residuals;
+5. ``dense_path``: the same fields through the exact dense solve
+   (``solve(complexify=True)`` without ``truncate``), ``rotate(10)``, the
+   same getters and ``rule_n(N_DENSE_RUNS)`` with the launch counters
+   reset just before and read just after; its stages timed again one by
+   one; its singular vectors held to the SVD residual of the cross
+   covariance, and its spectrum and EOFs against the truncated model's
+   where the truncated solve resolves them (EOFs within the larger of
+   1e-3 and the truncated solve's Davis-Kahan bound);
+6. runs the main path at a small size on the card and on the CPU (the
+   plain versions, with the same random bits) and compares them; then
+   the dense and the truncated model small, on the card, on the CPU and
+   with the CPU's solution carried to the card, getter by getter;
+7. drives the generated Rule-N surrogate
    (``core.fastpath.fast_surrogate_variance_gen``, fields generated
    inside the Gram and projection kernels, never stored) for N_GEN seeds
    at the same full width, with the counters reset just before and read
@@ -41,6 +57,8 @@ N_OBS, N_LAT, N_LON = 2000, 250, 400       # the bench.py workload
 N_ROT = 10
 N_RUNS = 64          # of the workload's 1000 surrogates: cut for time only
 N_GEN = 32           # generated-surrogate runs: cut for time only
+N_DENSE_RUNS = 16    # Rule-N runs of the dense path: cut for time only
+N_PREDICT = 100      # time steps that predict() projects
 SEED = 7
 ENSEMBLE = dict(power=1, tol=1e-4, n_iter=6, polar_method='ns14')
 
@@ -657,19 +675,25 @@ def make_fields(n_obs, n_lat, n_lon, seed0=1):
     return out
 
 
+def _timed(torch, walls, name, fn, device='cuda'):
+    """``fn()``; its host seconds, ending in a device synchronize, go to
+    ``walls[name]``."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
 def workload(torch, left, right, device, n_runs, n_rot, walls=None):
     """The main path; ``walls`` collects host seconds per stage (each
     stage ends in a device synchronize)."""
     from xmca_tpu_torch.xarray import xMCA
+    walls = {} if walls is None else walls
 
     def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        if walls is not None:
-            walls[name] = time.perf_counter() - t0
-        return out
+        return _timed(torch, walls, name, fn, device)
 
     m = stage('ingest', lambda: xMCA(left, right, device=device))
 
@@ -682,6 +706,369 @@ def workload(torch, left, right, device, n_runs, n_rot, walls=None):
     stage('rotate', lambda: m.rotate(n_rot))
     null = stage('rule_n', lambda: m.rule_n(n_runs, seed=SEED))
     return m, null
+
+
+def _vals(x):
+    import numpy as np
+    return np.asarray(getattr(x, 'values', x))
+
+
+def _rel(got, ref):
+    """max |got - ref| over max |ref|."""
+    import numpy as np
+    got, ref = _vals(got), _vals(ref)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _align(ours, ref):
+    """``ours`` times the unit factor per mode (last axis) that best
+    matches ``ref``: singular vectors are unique only up to one."""
+    import numpy as np
+    ours, ref = _vals(ours), _vals(ref)
+    ip = np.sum(np.conj(ours.reshape(-1, ours.shape[-1]))
+                * ref.reshape(-1, ref.shape[-1]), axis=0)
+    return ours * (ip / np.where(np.abs(ip) > 0, np.abs(ip), 1))
+
+
+def result_getters(torch, m, n, walls, device='cuda'):
+    """Every result getter of a solved, rotated model, each timed into
+    ``walls``; the first N_PREDICT steps of the original-scale fields are
+    what ``predict`` projects."""
+    calls = (
+        ('eofs', lambda: m.eofs(n)),
+        ('pcs', lambda: m.pcs(n)),
+        ('spatial_amplitude', lambda: m.spatial_amplitude(n)),
+        ('spatial_phase', lambda: m.spatial_phase(n)),
+        ('temporal_amplitude', lambda: m.temporal_amplitude(n)),
+        ('temporal_phase', lambda: m.temporal_phase(n)),
+        ('homogeneous_patterns', lambda: m.homogeneous_patterns(n)),
+        ('heterogeneous_patterns', lambda: m.heterogeneous_patterns(n)),
+        ('reconstructed_fields',
+         lambda: m.reconstructed_fields(slice(1, n))),
+        ('fields', lambda: m.fields(original_scale=True)),
+        ('scf', m.scf),
+        ('rotation_matrix', lambda: m.rotation_matrix(True)),
+        ('correlation_matrix', m.correlation_matrix),
+    )
+    out = {name: _timed(torch, walls, name, fn, device)
+           for name, fn in calls}
+    new = {k: f.isel(time=slice(0, N_PREDICT))
+           for k, f in out['fields'].items()}
+    out['predict'] = _timed(torch, walls, 'predict', lambda: m.predict(
+        left=new['left'], right=new['right']), device)
+    return out
+
+
+def check_results(out, n, n_obs, grid):
+    """Shapes and finiteness of every getter's result (the synthetic
+    fields keep every column); returns predict's error against the rows
+    of pcs it projects (the same steps of the same complexified data)."""
+    import numpy as np
+    spatial, temporal = tuple(grid) + (n,), (n_obs, n)
+    shapes = {'eofs': spatial, 'pcs': temporal,
+              'spatial_amplitude': spatial, 'spatial_phase': spatial,
+              'temporal_amplitude': temporal, 'temporal_phase': temporal,
+              'reconstructed_fields': (n_obs,) + tuple(grid),
+              'fields': (n_obs,) + tuple(grid), 'predict': (N_PREDICT, n)}
+    for name, shape in shapes.items():
+        for k, v in out[name].items():
+            a = _vals(v)
+            _check(a.shape == shape and np.isfinite(a).all(),
+                   '{} {}: shape {} (expected {}) or non-finite values'
+                   .format(name, k, a.shape, shape))
+    for name in ('homogeneous_patterns', 'heterogeneous_patterns'):
+        maps, pvals = out[name]
+        for k in maps:
+            r, p = _vals(maps[k]), _vals(pvals[k])
+            _check(r.shape == spatial == p.shape and np.isfinite(r).all()
+                   and np.abs(r).max() <= 1 + 1e-5
+                   and ((p >= 0) & (p <= 1)).all(),
+                   '{} {}: bad correlations or p-values'.format(name, k))
+    scf = _vals(out['scf'])
+    _check(scf.shape == (n,) and np.isfinite(scf).all(), 'bad scf')
+    for name in ('rotation_matrix', 'correlation_matrix'):
+        _check(out[name].shape == (n, n) and np.isfinite(out[name]).all(),
+               'bad ' + name)
+    return max(_rel(out['predict'][k], _vals(out['pcs'][k])[:N_PREDICT])
+               for k in out['pcs'])
+
+
+def _print_walls(label, walls):
+    print('{}: {}'.format(label, ', '.join(
+        '{} {:.4f} s'.format(k, v) for k, v in walls.items())))
+
+
+def result_path(torch, m):
+    """The result getters on the main path's truncated, rotated model at
+    full width."""
+    import numpy as np
+    walls = {}
+    _check(m._complexify_pending,
+           'rotate or rule_n materialized the complex fields')
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _timed(torch, walls, 'eofs before Z', lambda: m.eofs(N_ROT))
+    _check(m._complexify_pending, 'eofs materialized the complex fields')
+    _timed(torch, walls, 'Z materialization', m._ensure_complex_fields)
+    _check(not m._complexify_pending and m._fields['left'].is_complex(),
+           'Z was not materialized')
+    out = result_getters(torch, m, N_ROT, walls)
+    pred_err = check_results(out, N_ROT, N_OBS, (N_LAT, N_LON))
+    peak = torch.cuda.max_memory_allocated()
+    # reconstructions of modes 1-5 and 1-10 against the scaled field
+    scaled = {k: _vals(f).real
+              for k, f in m.fields(original_scale=False).items()}
+    residual = {}
+    for modes in (5, N_ROT):
+        rec = m.reconstructed_fields(slice(1, modes), original_scale=False)
+        residual[modes] = max(
+            float(np.linalg.norm((_vals(rec[k]) - x).ravel())
+                  / np.linalg.norm(x.ravel())) for k, x in scaled.items())
+    _print_walls('result_path at {} x 2 x {} (truncated model, rotate({}))'
+                 .format(N_OBS, N_LAT * N_LON, N_ROT), walls)
+    print('result_path: peak device memory {:.2f} GB ({:.2f} GB resident '
+          'before); predict(fields(original_scale=True) first {} steps) vs '
+          'pcs rows: rel {:.2e} (tol 1e-4); reconstruction residual modes '
+          '1-5 {:.4f}, 1-{} {:.4f} (must fall, below 1)'.format(
+              peak / 1e9, base / 1e9, N_PREDICT, pred_err, residual[5],
+              N_ROT, residual[N_ROT]))
+    _check(pred_err <= 1e-4, 'predict differs from pcs: {:.2e}'
+           .format(pred_err))
+    _check(residual[N_ROT] < residual[5] < 1,
+           'reconstruction residuals {}'.format(residual))
+
+
+def dense_stages(torch, X):
+    """The dense complex solve's stages one at a time (warm) on the
+    preprocessed real fields ``X``, with the algebra of
+    ``core.solver.solve_mca`` and ``field_decomposition``'s p > n branch;
+    returns the walls and the spectrum."""
+    from xmca_tpu_torch.core import preprocess as pre
+    from xmca_tpu_torch.core.linalg import kernel_svd, safe_reciprocal
+    from xmca_tpu_torch.core.solver import _kernel
+    walls = {}
+    keys = ('left', 'right')
+
+    def each(fn):
+        return {k: fn(k) for k in keys}
+
+    Z = _timed(torch, walls, 'complexify',
+               lambda: each(lambda k: pre.complexify(X[k])))
+    G = _timed(torch, walls, 'Grams', lambda: each(lambda k: Z[k] @ Z[k].mH))
+    eig = _timed(torch, walls, 'eigh',
+                 lambda: each(lambda k: torch.linalg.eigh(G[k])))
+    del G
+
+    def recover(k):
+        w, Q = (torch.flip(a, (-1,)) for a in eig[k])
+        L = torch.sqrt(torch.clamp(w, min=0.0))
+        return Q, L, Z[k].mH @ (Q * safe_reciprocal(L))
+    KLM = _timed(torch, walls, 'M', lambda: each(recover))
+    dof = Z['left'].shape[0] - 1
+    U, s, Vh = _timed(torch, walls, 'kernel + kernel SVD', lambda: kernel_svd(
+        _kernel(KLM['left'][0], KLM['left'][1], KLM['right'][0],
+                KLM['right'][1], dof)))
+    _timed(torch, walls, 'back-projection',
+           lambda: (KLM['left'][2] @ U, KLM['right'][2] @ Vh.mH))
+    return walls, s.cpu().numpy()
+
+
+def dense_path(torch, left, right, m):
+    """The same fields through the exact dense solve at full width, its
+    getters and Rule-N, held against the truncated model ``m``."""
+    import numpy as np
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.xarray import xMCA
+    walls = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    d = _timed(torch, walls, 'ingest',
+               lambda: xMCA(left, right, device='cuda'))
+
+    def prepare():
+        d.normalize()
+        d.apply_coslat()
+    _timed(torch, walls, 'normalize + apply_coslat', prepare)
+    # the stage-by-stage rerun below starts from the same real fields
+    X = {k: f.clone() for k, f in d._fields.items()}
+    copy_bytes = sum(f.numel() * f.element_size() for f in X.values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _timed(torch, walls, 'solve', lambda: d.solve(complexify=True))
+    solve_growth = torch.cuda.max_memory_allocated() - before
+    resident = torch.cuda.memory_allocated() - base - copy_bytes
+    _timed(torch, walls, 'rotate', lambda: d.rotate(N_ROT))
+    eofs = _timed(torch, walls, 'eofs unrotated',
+                  lambda: d.eofs(N_ROT, rotated=False))
+    out = result_getters(torch, d, N_ROT, walls)
+    null = _timed(torch, walls, 'rule_n',
+                  lambda: d.rule_n(N_DENSE_RUNS, seed=SEED))
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    pred_err = check_results(out, N_ROT, N_OBS, (N_LAT, N_LON))
+
+    # the truncated solve resolves mode i when its subspace iteration has
+    # damped the rest by (s_kk / s_i)^(2 iters) (kk = k + 16 columns)
+    s_all = d.singular_values().values
+    kk, iters = N_ROT + 16, m._subspace_iters
+    resolved = (s_all[kk] / s_all[:N_ROT]) ** (2 * iters) <= 1e-6
+    s_m = m.singular_values(N_ROT).values
+    sv_err = np.abs(s_all[:N_ROT] / s_m - 1)
+    # the truncated solve's jitter perturbs its kernel by about its
+    # largest singular-value offset on the resolved modes; an EOF then
+    # moves by up to that over its gap to the nearest singular value
+    # (Davis-Kahan), which for modes ~1% apart exceeds 1e-3
+    eps_abs = np.abs(s_all[:N_ROT] - s_m)[resolved].max()
+    below = s_all[:N_ROT] - s_all[1:N_ROT + 1]
+    gap = np.minimum(below, np.r_[np.inf, below[:-1]])
+    eof_tol = np.maximum(1e-3, eps_abs / gap)
+    # the dense solve alone: C v_r = s v_l and C^H v_l = s v_r for
+    # C = Zl^H Zr / dof, relative to ||C|| = s_1, on every mode
+    Z, V = d._fields, {k: v[:, :N_ROT] for k, v in d._V.items()}
+    s10 = torch.as_tensor(s_all[:N_ROT], device='cuda')
+    svd_res = np.maximum(*(
+        torch.linalg.norm(Z[a].mH @ (Z[b] @ V[b]) / (N_OBS - 1)
+                          - V[a] * s10, dim=0).cpu().numpy()
+        for a, b in (('left', 'right'), ('right', 'left')))) / s_all[0]
+    eofs_m = m.eofs(N_ROT, rotated=False)
+    eof_err = np.array([max(
+        float(np.abs(_align(eofs[k].values[..., i:i + 1],
+                            eofs_m[k].values[..., i:i + 1])
+                     - eofs_m[k].values[..., i:i + 1]).max()
+              / np.abs(eofs_m[k].values[..., i]).max())
+        for k in ('left', 'right')) for i in range(N_ROT)])
+    totals = {key: d._analysis[key] / m._analysis[key] - 1
+              for key in ('total_covariance', 'total_squared_covariance')}
+    null = np.asarray(null)
+    stage_walls, s_stages = dense_stages(torch, X)
+    del X
+    stage_err = _rel(s_stages, s_all)
+    _print_walls('dense_path at {} x 2 x {} (cold)'.format(
+        N_OBS, N_LAT * N_LON), walls)
+    _print_walls('dense solve stage by stage (warm; spectrum rel {:.1e} '
+                 "of the model's)".format(stage_err), stage_walls)
+    print('dense_path: device memory ({:.2f} GB resident before): the '
+          'solve grew it by at most {:.2f} GB above its input; the solved '
+          'model holds {:.2f} GB; peak of the path {:.2f} GB above the '
+          'start (with the {:.2f} GB copy of the real fields); launches {}; '
+          'rule_n kept {} of {} runs; predict vs pcs rel {:.2e}'.format(
+              base / 1e9, solve_growth / 1e9, resident / 1e9, peak / 1e9,
+              copy_bytes / 1e9, launches, null.shape[1], N_DENSE_RUNS,
+              pred_err))
+    print('dense solve, modes 1-{}: singular-vector residual '
+          '|C v - s u| / s_1 {} (tol 1e-4)'.format(
+              N_ROT, np.array2string(svd_res, precision=2)))
+    print('dense vs truncated, modes 1-{}: singular values rel {}; EOF '
+          '(unrotated, aligned) rel {}, tol max(1e-3, {:.3g} / gap) {}; '
+          'resolved by the truncated solve (damping <= 1e-6): {} (checked '
+          'there; singular values tol 1e-4); totals rel cov {:.2e}, '
+          'squared {:.2e}'.format(
+              N_ROT, np.array2string(sv_err, precision=2),
+              np.array2string(eof_err, precision=2), eps_abs,
+              np.array2string(eof_tol, precision=2),
+              np.nonzero(resolved)[0] + 1, totals['total_covariance'],
+              totals['total_squared_covariance']))
+    _check((svd_res <= 1e-4).all(), 'the dense solve is not an SVD')
+    _check(resolved.sum() >= 8, 'the truncated solve resolves {} modes'
+           .format(resolved.sum()))
+    _check((sv_err[resolved] <= 1e-4).all(),
+           'dense and truncated singular values differ')
+    _check((eof_err <= eof_tol)[resolved].all(),
+           'dense and truncated EOFs differ')
+    _check(pred_err <= 1e-4, 'dense predict differs from pcs')
+    _check(stage_err <= 1e-4, 'the stage-by-stage solve differs from the '
+           "model's: {:.2e}".format(stage_err))
+    for name in ('syrk', 'sign_field_sums'):
+        _check(launches.get(name, 0) == 2 * N_DENSE_RUNS,
+               'dense path launched {} {} times, not 2 x {}'.format(
+                   name, launches.get(name, 0), N_DENSE_RUNS))
+    _check(null.shape == (N_ROT, null.shape[1])
+           and null.shape[1] >= 0.9 * N_DENSE_RUNS
+           and np.isfinite(null).all(),
+           'dense Rule-N kept {} of {} runs'.format(null.shape[1],
+                                                   N_DENSE_RUNS))
+
+
+# carried state: the same solution on both devices, so every getter is
+# held at f32 roundoff; own solves: independent, compared after
+# per-mode alignment where the result carries a mode's unit factor
+SMALL_TOL = {'carried': 1e-4, 'own': 1e-3}
+_PHASE_FREE = ('spatial_amplitude', 'temporal_amplitude',
+               'reconstructed_fields', 'fields', 'scf')
+_ALIGNED = ('eofs', 'pcs', 'predict')
+
+
+def _getter_errors(got, ref, own):
+    """Largest error per getter of ``got`` against ``ref``: relative to
+    the largest entry; p-values absolute; phases as amplitude-weighted
+    unit vectors (no wrap at +-pi); ``own`` solves only on the
+    phase-free and aligned getters."""
+    import numpy as np
+    amp = {'spatial_phase': 'spatial_amplitude',
+           'temporal_phase': 'temporal_amplitude'}
+    errs = {}
+    for name, r in ref.items():
+        if own and name not in _PHASE_FREE + _ALIGNED:
+            continue
+        g = got[name]
+        if name.endswith('patterns'):
+            errs[name] = max(max(_rel(g[0][k], r[0][k]) for k in r[0]),
+                             max(float(np.abs(_vals(g[1][k])
+                                              - _vals(r[1][k])).max())
+                                 for k in r[1]))
+        elif name in amp:
+            errs[name] = max(_rel(
+                _vals(ref[amp[name]][k]) * np.exp(1j * _vals(g[k])),
+                _vals(ref[amp[name]][k]) * np.exp(1j * _vals(r[k])))
+                for k in r)
+        elif isinstance(r, dict):
+            errs[name] = max(_rel(_align(g[k], r[k]) if own
+                                  and name in _ALIGNED else g[k], r[k])
+                             for k in r)
+        else:
+            errs[name] = _rel(g, r)
+    return errs
+
+
+def small_results(torch):
+    """The dense and the truncated model at 256 x 2 x (16 x 32) on the
+    card and on the CPU, and the CPU's solution carried to the card:
+    every getter against the CPU's."""
+    from xmca_tpu_torch.utils.state import install_state, to_state
+    from xmca_tpu_torch.xarray import xMCA
+    left, right = make_fields(256, 16, 32, seed0=21)
+    n = 4
+    for solve in ('dense', 'truncated'):
+        def build(device):
+            mm = xMCA(left, right, device=device)
+            if solve == 'truncated':
+                mm.set_solver(truncate=n)
+            mm.normalize()
+            mm.apply_coslat()
+            mm.solve(complexify=True)
+            mm.rotate(n)
+            return mm
+        cpu, own = build('cpu'), build('cuda')
+        carried = xMCA(left, right, device='cuda')
+        install_state(carried, to_state(cpu))
+        ref = result_getters(torch, cpu, n, {}, 'cpu')
+        sv = _rel(own.singular_values().values, cpu.singular_values().values)
+        for label, model in (('carried', carried), ('own', own)):
+            errs = _getter_errors(result_getters(torch, model, n, {}), ref,
+                                  label == 'own')
+            if label == 'own':
+                errs['singular_values'] = sv
+            tol = SMALL_TOL[label]
+            print('small {} model, card ({}) vs CPU, rel errors (tol {:g}; '
+                  'p-values absolute): {}'.format(
+                      solve, label, tol, ', '.join(
+                          '{} {:.1e}'.format(k, v) for k, v in errs.items())))
+            _check(all(v <= tol for v in errs.values()),
+                   'small {} model: card ({}) and CPU disagree'.format(
+                       solve, label))
 
 
 def main():
@@ -733,7 +1120,6 @@ def main():
     m, null = workload(torch, left, right, 'cuda', N_RUNS, N_ROT, walls)
     launches = _build.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del left, right
 
     null = np.asarray(null)
     var = np.asarray(m.variance(N_ROT))
@@ -761,6 +1147,11 @@ def main():
     _check(np.isfinite(null).all() and np.isfinite(var).all(),
            'non-finite results')
 
+    result_path(torch, m)
+    dense_path(torch, left, right, m)
+    del m, left, right
+    torch.cuda.empty_cache()
+
     # the same path small, on the card and on the CPU (plain versions,
     # same random bits): f32 roundoff through Cholesky, the subspace
     # iteration and the rotation fixed points
@@ -778,6 +1169,7 @@ def main():
           .format(sv_err, var_err, q_err))
     _check(sv_err <= 1e-4 and var_err <= 1e-3 and q_err <= 2e-2,
            'card and CPU disagree on the small path')
+    small_results(torch)
 
     gen_launches = gen_path(torch)
     gen_small(torch)

@@ -104,8 +104,10 @@ def test_rotate_and_rule_n_match_jax(solved):
 
 
 def test_state_carry_over_round_trip():
-    """JAX solve -> port rotate == JAX rotate (1e-5), and the port's
-    state installed back into a JAX model reads back unchanged."""
+    """JAX solve -> port eofs/pcs/reconstructed_fields == JAX's (1e-9;
+    the port builds the deferred Z itself) and port rotate == JAX rotate
+    (1e-5), and the port's state installed back into a JAX model reads
+    back unchanged."""
     from xmca_tpu.array import MCA as JMCA
     from xmca_tpu_torch.array import MCA as TMCA
     left, right = _fields()
@@ -118,6 +120,15 @@ def test_state_carry_over_round_trip():
                                                        .dtype).numpy(), H)
     np.testing.assert_allclose(tm.singular_values(), jm.singular_values()
                                .values, rtol=0)
+    assert tm._complexify_pending and jm._complexify_pending
+    for got, ref in ((tm.eofs(K), jm.eofs(K)), (tm.pcs(K), jm.pcs(K)),
+                     (tm.reconstructed_fields(original_scale=False),
+                      jm.reconstructed_fields(original_scale=False))):
+        for k in ('left', 'right'):
+            ref_k = ref[k].values
+            np.testing.assert_allclose(got[k], ref_k, rtol=0,
+                                       atol=1e-9 * np.abs(ref_k).max())
+    assert not tm._complexify_pending
     jm.rotate(K)
     tm.rotate(K)
     np.testing.assert_allclose(tm.variance(), jm.variance().values,
@@ -133,7 +144,11 @@ def test_state_carry_over_round_trip():
         np.testing.assert_array_equal(again[name], state[name])
     for k in ('left', 'right'):
         np.testing.assert_array_equal(again['_V'][k], state['_V'][k])
+        np.testing.assert_array_equal(again['_fields'][k],
+                                      state['_fields'][k])
     assert again['_analysis'] == state['_analysis']
+    for name in ('_complexify_pending', '_solver_method'):
+        assert again[name] == state[name]
     np.testing.assert_allclose(back.variance(), tm.variance(), rtol=0)
 
 
@@ -141,7 +156,8 @@ def test_port_imports_no_jax():
     """The port loads no module of JAX and none of the JAX package: it
     keeps its own copies of what it needs (version, compat)."""
     code = ('import sys, xmca_tpu_torch, xmca_tpu_torch.xarray, '
-            'xmca_tpu_torch.array, xmca_tpu_torch.utils.state; '
+            'xmca_tpu_torch.array, xmca_tpu_torch.utils.state, '
+            'xmca_tpu_torch.core.solver; '
             'print(sorted(m for m in sys.modules if m.split(".")[0] '
             'in ("xmca_tpu", "jax", "jaxlib")))')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -1,23 +1,30 @@
-"""``MCA`` on torch tensors — the main-path subset of the ndarray API.
+"""``MCA`` on torch tensors — the in-memory ndarray API.
 
 Counterpart of ``xmca_tpu/api/array.py``: construction and ingestion,
-``set_solver``, ``apply_weights``, ``normalize``, the truncated
-(matmul-only) ``solve``, ``rotate``, the spectrum getters, ``rule_n`` and
-``rule_north``.  Fields live on the device named at construction
-(``'cuda'`` by default); every option the port does not implement yet
-raises ``NotImplementedError`` instead of running something else.
+``set_solver``, ``apply_weights``, ``normalize``, the exact dense and the
+truncated ``solve``, ``rotate``, the result getters (spectrum, EOFs, PCs,
+amplitude and phase, correlation patterns, reconstruction, ``predict``,
+``truncate``, rotation and correlation matrices, ``fields``), ``rule_n``
+and ``rule_north``.  Fields and singular vectors live on the device named
+at construction (``'cuda'`` by default); every product runs there and only
+a getter's final result is copied to numpy.  Options the port does not
+implement yet raise ``NotImplementedError`` instead of running something
+else.
 
 Rule-N always runs the accelerator configuration of the JAX package:
 generated +-1 surrogates (draw and syrk kernels), the fast spectrum,
 ``grade='fast'``, rotation tolerance 1e-4 with the 14-step Newton-Schulz
 polar, and 6 subspace iterations.
 """
+import cmath
+
 import numpy as np
 import torch
 
 from xmca_tpu_torch.version import __version__
 from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core import preprocess as _pre
+from xmca_tpu_torch.core import solver as _solver
 from xmca_tpu_torch.core.rotation import promax as _promax
 from xmca_tpu_torch.stats import significance as _sig
 from xmca_tpu_torch.utils.device import resolve_device
@@ -29,6 +36,67 @@ def _not_ported(what):
     return NotImplementedError(
         '{} is not ported to xmca_tpu_torch yet (see ROADMAP.md, queue 1)'
         .format(what))
+
+
+def _np(x):
+    return x.detach().cpu().resolve_conj().numpy()
+
+
+def _host_to(x, like, real=False):
+    """Host array ``x`` as a tensor on ``like``'s device, in ``like``'s
+    dtype (its real dtype when ``real``)."""
+    t = torch.as_tensor(np.ascontiguousarray(x), device=like.device)
+    return t.to(like.real.dtype if real else like.dtype)
+
+
+def _nan_fill(dtype):
+    return complex(np.nan, np.nan) if dtype.is_complex else float('nan')
+
+
+# ---------------------------------------------------------------------------
+# Mode-space products: scale the singular vectors by sqrt(s), mix them
+# through the rotation matrix, order them by variance, project the data
+# through them.  Plain tensor algebra on the model's device (f32 with TF32
+# off on the card); `order` is a LongTensor, `keep` a slice.
+# ---------------------------------------------------------------------------
+
+def _loadings(V, col_w, R, inv_norm, order, pool):
+    """Rotated spatial vectors: ``((V sqrt(s)) R / norm)``, variance-ordered."""
+    return ((V[:, :pool] * col_w) @ R * inv_norm)[:, order]
+
+
+def _scores(X, V, whiten, pool):
+    """Unrotated PC series: ``(X V) / sqrt(s)``."""
+    return (X @ V[:, :pool]) * whiten
+
+
+def _scores_rotated(X, V, whiten, R_it, order, pool):
+    """Rotated PC series: ``((X V) / sqrt(s)) R^-T``, variance-ordered."""
+    return (_scores(X, V, whiten, pool) @ R_it)[:, order]
+
+
+def _reconstruct_factors(X, V, whiten, R_it, col_w, R, inv_norm, norm_keep,
+                         order, pool, keep):
+    """Rank-k factors ``(S, W)`` of the mode-subset reconstruction
+    ``real(S W^H)``: the eigen-scaled rotated PCs (n_obs, k) and the
+    rotated spatial vectors (p, k)."""
+    S = _scores_rotated(X, V, whiten, R_it, order, pool)[:, keep] * norm_keep
+    W = _loadings(V, col_w, R, inv_norm, order, pool)[:, keep]
+    return S, W
+
+
+def _pattern(X, Xs, V, whiten, R_it, order, cos_p, sin_p, pool, keep):
+    """Pearson correlation maps of real(X) against the phase-shifted real
+    PCs of Xs."""
+    S = _scores_rotated(Xs, V, whiten, R_it, order, pool)[:, keep]
+    if S.is_complex():
+        S = S.real * cos_p - S.imag * sin_p
+    Xr = X.real
+    Xc = Xr - Xr.mean(dim=0)
+    Sc = S - S.mean(dim=0)
+    den = (torch.linalg.norm(Xc, dim=0)[:, None]
+           * torch.linalg.norm(Sc, dim=0)[None, :])
+    return (Xc.T @ Sc) / den
 
 
 class MCA:
@@ -91,6 +159,7 @@ class MCA:
         }
         self._analysis['method'] = self._get_method_id()
 
+        self._solver_method = 'gram'
         self._subspace_iters = 12
         self._solver_truncate = None
         self._solver_seed = 0
@@ -129,16 +198,21 @@ class MCA:
         return 'mca' if self._analysis['is_bivariate'] else 'pca'
 
     # --------------------------------------------------------------- config
-    def set_solver(self, truncate=None, seed=None, subspace_iters=None,
-                   spectrum=None, surrogate_source=None,
+    def set_solver(self, method=None, truncate=None, seed=None,
+                   subspace_iters=None, spectrum=None, surrogate_source=None,
                    surrogate_gen_dist=None, ensemble_tol=None,
                    ensemble_subspace_iters=None):
-        """Configure the solver (the main-path keys of the JAX API).
+        """Configure the solver (the ported keys of the JAX API).
 
-        ``truncate``: solve the leading modes with the matmul-only
-        pipeline (required: the exact dense solver is not ported yet).
-        ``seed``: seed of the solve's subspace start block.
-        ``subspace_iters``: the solve's power iterations (default 12).
+        ``method``: the exact solve's field decomposition, 'gram'
+        (default: eigendecompose the small Gram matrix) or 'svd' (a
+        direct dense SVD).
+        ``truncate``: solve only the leading modes with the matmul-only
+        subspace pipeline (exact totals); without it ``solve`` runs the
+        exact dense solver.
+        ``seed``: seed of the truncated solve's subspace start block.
+        ``subspace_iters``: the truncated solve's power iterations
+        (default 12).
         ``ensemble_tol`` / ``ensemble_subspace_iters``: Rule-N's rotation
         tolerance (default 1e-4) and power iterations (default 6).
         ``spectrum``, ``surrogate_source`` and ``surrogate_gen_dist``
@@ -151,6 +225,10 @@ class MCA:
                 ('surrogate_gen_dist', surrogate_gen_dist, 'rademacher8')):
             if value is not None and value != ported:
                 raise _not_ported('set_solver({}={!r})'.format(name, value))
+        if method is not None:
+            if method not in ('gram', 'svd'):
+                raise ValueError("method must be 'gram' or 'svd'")
+            self._solver_method = method
         if truncate is not None:
             self._solver_truncate = int(truncate)
         if seed is not None:
@@ -185,6 +263,88 @@ class MCA:
         self._analysis['is_coslat_corrected'] = False
         self._analysis['method'] = self._get_method_id()
 
+    def _scale_X(self, data_dict):
+        """Center (and normalize, if flagged) new data, per field
+        (tensors on the device)."""
+        scaled = {}
+        for k, field in data_dict.items():
+            field = field - _host_to(self._field_means[k], field, real=True)
+            if self._analysis['is_normalized']:
+                field = field / _host_to(self._field_stds[k], field,
+                                         real=True)
+            scaled[k] = field
+        return scaled
+
+    def _inverse_scale_vectors(self, key):
+        """The inverse of the model's scaling as per-column host vectors
+        over the kept columns, ``X * colmul + coladd``; ``colmul`` is None
+        when it is the identity."""
+        colmul = (np.asarray(self._field_stds[key])
+                  if self._analysis['is_normalized'] else None)
+        return colmul, np.asarray(self._field_means[key])
+
+    def _scale_X_inverse(self, data_dict):
+        """Undo the model's scaling of packed fields (tensors)."""
+        scaled = {}
+        for k, field in data_dict.items():
+            colmul, coladd = self._inverse_scale_vectors(k)
+            if colmul is not None:
+                field = field * _host_to(colmul, field, real=True)
+            scaled[k] = field + _host_to(coladd, field, real=True)
+        return scaled
+
+    # ------------------------------------------------------------ raw views
+    def _ensure_complex_fields(self):
+        """Materialize a deferred Hilbert complexification.
+
+        A truncated analytic-fold solve leaves the REAL fields resident:
+        rotate, rule_n and the spectrum getters never need ``Z``.  The
+        first consumer of the complex fields (pcs, patterns,
+        reconstruction, ``fields()``, a re-solve) builds it here once; each
+        real field is freed as its ``Z`` replaces it.
+        """
+        if not self._complexify_pending:
+            return
+        self._complexify_pending = False
+        for k in self._keys:
+            self._fields[k] = _pre.complexify(self._fields[k])
+
+    def _can_defer_complexify(self, extend):
+        """True when the coming complexified solve runs the analytic fold
+        on the real fields (the wide truncated regime), so ``Z`` need not
+        exist yet."""
+        if extend or self._solver_truncate is None or not self._fields:
+            return False
+        n_obs = self._n_observations['left']
+        if n_obs > _HILBERT_MATMUL_MAX_N:
+            return False
+        return min(int(f.shape[1]) for f in self._fields.values()) >= n_obs
+
+    def _get_X(self, original_scale=False):
+        """The packed fields on the device (complex ones materialized)."""
+        self._ensure_complex_fields()
+        X = dict(self._fields)
+        if original_scale:
+            X = self._scale_X_inverse(X)
+        return X
+
+    def _get_fields(self, original_scale=False):
+        n_obs = self._n_observations['left']
+        fields = {}
+        for k, X in self._get_X(original_scale=original_scale).items():
+            full = torch.full((n_obs, self._n_variables[k]),
+                              _nan_fill(X.dtype), dtype=X.dtype,
+                              device=X.device)
+            full[:, torch.as_tensor(self._no_nan_index[k],
+                                    device=X.device)] = X
+            fields[k] = _np(full).reshape(
+                (n_obs,) + tuple(self._fields_spatial_shape[k]))
+        return fields
+
+    def fields(self, original_scale=False):
+        """Return `left` (and `right`) input fields on their original grid."""
+        return self._get_fields(original_scale)
+
     # ---------------------------------------------------------------- solve
     def _hilbert_operator(self, n_obs, dtype):
         """The real Hilbert operator H (``analytic(x) = x + iHx``),
@@ -201,57 +361,86 @@ class MCA:
         return _fast.start_block(m, k, dtype, gen)
 
     def solve(self, complexify=False, extend=False, period=1):
-        """Truncated MCA (``set_solver(truncate=k)``), complexified
-        through the analytic fold when ``complexify=True``.
+        """Perform the MCA / PCA, complexified (Hilbert) when
+        ``complexify=True``.
 
-        The complex fields are never built: the fields stay real and the
-        solve folds the Hilbert operator into their Grams.
+        Without ``set_solver(truncate=k)`` this is the exact dense solve
+        (per-field Gram or SVD decompositions and one kernel SVD).  A
+        truncated solve of fields at least as wide as they are long runs
+        the matmul-only subspace pipeline; when complexified it folds the
+        Hilbert operator into the real fields' Grams and leaves ``Z`` to
+        its first consumer.  Narrower fields take the exact pipeline.
         """
-        if self._solver_truncate is None:
-            raise _not_ported('solve() without set_solver(truncate=k) '
-                              '(the exact dense solver)')
         if extend:
             raise _not_ported('solve(extend={!r})'.format(extend))
-        if self._complexify_pending:
-            raise _not_ported('re-solving a complexified model')
         if not self._fields or any(f.numel() == 0
                                    for f in self._fields.values()):
             raise RuntimeError('Fields are empty. Did you forget to load '
                                'data?')
-        Xl = self._fields['left']
-        Xr = self._fields[self._keys[-1]]
-        n_obs = Xl.shape[0]
-        if min(Xl.shape[1], Xr.shape[1]) < n_obs:
-            raise _not_ported('the truncated solve of fields with fewer '
-                              'columns than time steps')
+        n_obs = self._n_observations['left']
         if complexify and n_obs > _HILBERT_MATMUL_MAX_N:
             raise _not_ported('complexify with more than {} time steps'
                               .format(_HILBERT_MATMUL_MAX_N))
-        k = min(self._solver_truncate, n_obs, Xl.shape[1], Xr.shape[1])
+        # a re-solve runs on the complexified fields (the solve mutates
+        # the stored data); when this solve defers again, the fold reads
+        # only the real part, which is analytic(real(Z)) == Z's
+        will_defer = complexify and self._can_defer_complexify(extend)
+        if not will_defer:
+            self._ensure_complex_fields()
+        self._analysis['is_complex'] = complexify
+        self._analysis['extend'] = extend
+        self._analysis['theta_period'] = period
+        if will_defer:
+            self._complexify_pending = True
+        elif complexify:
+            for k in self._keys:
+                self._fields[k] = _pre.complexify(self._fields[k])
 
-        if complexify:
-            H = self._hilbert_operator(n_obs, Xl.dtype)
-            omega = self._start_block(n_obs, k, _fast._complex_dtype(
-                Xl.dtype))
+        fields = [self._fields[k] for k in self._keys]
+        if self._solver_truncate is not None:
+            svals, Vs, totals = self._solve_truncated(fields)
+        else:
+            s, Vs = _solver.solve(fields, method=self._solver_method)
+            svals = _np(s)
+            totals = (float(svals.sum()), float((svals ** 2).sum()))
+        self._install_solution(svals, Vs, totals)
+
+    def _solve_truncated(self, fields):
+        """Leading-k solve: ``(svals, [V per field], (total_cov,
+        total_sq))`` with exact totals."""
+        Xl = fields[0]
+        Xr = fields[-1]
+        Xr_arg = Xr if len(fields) == 2 else None
+        n_obs = Xl.shape[0]
+        k = min(self._solver_truncate, n_obs, Xl.shape[1], Xr.shape[1])
+        if min(Xl.shape[1], Xr.shape[1]) < n_obs:
+            # small-space regime: the temporal Grams are rank deficient
+            # beyond the jitter, so the Cholesky reduction is invalid; the
+            # exact pipeline is cheap here
+            s_full = _np(_solver.solve_svals(Xl, Xr_arg,
+                                             method=self._solver_method))
+            s, Vl, Vr = _solver.solve_truncated(
+                Xl, Xr_arg, n_modes=k, method=self._solver_method)
+            totals = (float(s_full.sum()), float((s_full ** 2).sum()))
+        elif self._complexify_pending:
+            real = Xl.real.dtype
+            H = self._hilbert_operator(n_obs, real)
+            omega = self._start_block(n_obs, k, _fast._complex_dtype(real))
             s, Vl, Vr, total_cov, total_sq = \
                 _fast.fast_solve_truncated_totals_analytic(
-                    Xl, Xr, H, omega, n_modes=k,
+                    Xl.real, Xr.real, H, omega, n_modes=k,
                     n_iter=self._subspace_iters)
-            self._complexify_pending = True
+            totals = (float(total_cov), float(total_sq))
         else:
             omega = self._start_block(n_obs, k, Xl.dtype)
             s, Vl, Vr, total_cov, total_sq = \
                 _fast.fast_solve_truncated_totals(
                     Xl, Xr, omega, n_modes=k, n_iter=self._subspace_iters)
-        svals = s.cpu().numpy()
-        self._install_solution(
-            svals, dict(zip(self._keys, (Vl, Vr))),
-            (float(total_cov), float(total_sq)), complexify)
+            totals = (float(total_cov), float(total_sq))
+        return _np(s), [Vl, Vr][:len(fields)], totals
 
-    def _install_solution(self, svals, V, totals, complexify):
-        self._analysis['is_complex'] = complexify
-        self._analysis['extend'] = False
-        self._V = V
+    def _install_solution(self, svals, Vs, totals):
+        self._V = dict(zip(self._keys, Vs))
         self._singular_values = svals
         self._variance = svals
         self._var_idx = np.argsort(svals)[::-1]
@@ -259,7 +448,8 @@ class MCA:
         self._analysis['total_covariance'] = totals[0]
         self._analysis['total_squared_covariance'] = totals[1]
         self._analysis['rank'] = len(svals)
-        self._analysis['is_truncated'] = True
+        if self._solver_truncate is not None:
+            self._analysis['is_truncated'] = True
         self._analysis['is_truncated_at'] = len(svals)
         self._analysis['is_rotated'] = False
         self._analysis['n_rot'] = len(svals)
@@ -277,12 +467,10 @@ class MCA:
             raise ValueError('`power` must be >=1')
         sqrt_s = np.sqrt(self._get_svals(n_rot))
         Vl = self._V['left']
-        real = Vl.real.dtype
         cols = [Vl[:, :n_rot]]
         if self._analysis['is_bivariate']:
             cols.append(self._V['right'][:, :n_rot])
-        L = torch.cat(cols, dim=0) * torch.as_tensor(
-            sqrt_s, device=Vl.device, dtype=real)[None, :]
+        L = torch.cat(cols, dim=0) * _host_to(sqrt_s, Vl, real=True)[None, :]
         L_rot, R, Phi, converged, n_iter = _promax(
             L, power=power, max_iter=1000, tol=tol)
         self._rotate_iterations = n_iter
@@ -298,16 +486,35 @@ class MCA:
         else:
             both = torch.linalg.norm(L_rot, dim=0)
             norm = {'left': both, 'right': both}
-        norm = {k: v.cpu().numpy() for k, v in norm.items()}
+        norm = {k: _np(v) for k, v in norm.items()}
         variance = norm['left'] * norm['right']
         self._norm = {k: norm[k] for k in self._keys}
         self._variance = variance
         self._var_idx = np.argsort(variance)[::-1]
-        self._rotation_matrix = R.cpu().numpy()
-        self._correlation_matrix = Phi.cpu().numpy()
+        self._rotation_matrix = _np(R)
+        self._correlation_matrix = _np(Phi)
         self._analysis['is_rotated'] = True
         self._analysis['n_rot'] = n_rot
         self._analysis['power'] = power
+
+    def rotation_matrix(self, inverse_transpose=False):
+        """Return the rotation matrix (identity if unrotated)."""
+        try:
+            R = self._rotation_matrix
+        except AttributeError:
+            R = np.eye(len(self.singular_values()))
+        # orthogonal rotations satisfy R == pinv(R)^H
+        if inverse_transpose and self._analysis['power'] > 1:
+            R = np.linalg.pinv(R).conjugate().T
+        return R
+
+    def correlation_matrix(self):
+        """Return the PC correlation matrix (identity unless oblique)."""
+        try:
+            var_idx = self._var_idx
+            return self._correlation_matrix[var_idx, :][:, var_idx]
+        except AttributeError:
+            return np.eye(len(self.singular_values()))
 
     # -------------------------------------------------------------- getters
     def _get_slice(self, spec):
@@ -323,6 +530,30 @@ class MCA:
             return slice(0, spec)
         raise ValueError('Invalid type {:}. Must be either int or slice.'
                          .format(type(spec)))
+
+    def _mode_pool(self, spec, rotated):
+        """Mode count entering the mode-space products: a rotated result
+        mixes all ``n_rot`` rotated modes (the requested slice applies
+        after the mixing); an unrotated one touches only the requested
+        columns (``None`` = all)."""
+        if rotated:
+            return self._analysis['n_rot']
+        if isinstance(spec, slice):
+            return spec.stop
+        return spec
+
+    def _basis(self):
+        """The device-resident singular vectors."""
+        try:
+            return self._V
+        except AttributeError:
+            raise RuntimeError('Cannot retrieve singular vectors. '
+                               'Please call the method `solve` first.')
+
+    def _order(self):
+        """The variance order of the modes as a LongTensor."""
+        return torch.as_tensor(np.ascontiguousarray(self._var_idx),
+                               device=self._device)
 
     def _get_svals(self, n=None):
         try:
@@ -348,6 +579,112 @@ class MCA:
             return norms['left'] * norms['right']
         return norms['left'] ** 2
 
+    def _rotation_weights(self, pool):
+        """(sqrt(s), 1/sqrt(s)) over the mode pool — the column weights
+        every mode-space product needs."""
+        roots = np.sqrt(self._get_svals(pool))
+        return roots, 1.0 / roots
+
+    def _get_V(self, n=None, rotated=True):
+        """Spatial singular vectors as host numpy; rotated ones are mixed
+        on the device and only the pool's columns are copied."""
+        pool = self._mode_pool(n, rotated)
+        keep = self._get_slice(n)
+        basis = self._basis()
+        if not rotated:
+            return {k: _np(basis[k][:, :pool])[:, keep] for k in self._keys}
+        col_w, _ = self._rotation_weights(pool)
+        norm = self._get_norm(pool, sorted=False)
+        R = self.rotation_matrix()
+        out = {}
+        for k in self._keys:
+            V = basis[k]
+            out[k] = _np(_loadings(
+                V, _host_to(col_w, V, real=True), _host_to(R, V),
+                _host_to(1.0 / norm[k], V, real=True), self._order(),
+                pool))[:, keep]
+        return out
+
+    def _get_U(self, n=None, rotated=True):
+        """PC time series: the stored fields projected through the
+        singular vectors, whitened by sqrt(s) (and mixed through R^-T
+        when rotated), on the device."""
+        pool = self._mode_pool(n, rotated)
+        keep = self._get_slice(n)
+        _, whiten = self._rotation_weights(pool)
+        self._ensure_complex_fields()
+        basis = self._basis()
+        out = {}
+        for k in self._keys:
+            X, V = self._fields[k], basis[k]
+            w = _host_to(whiten, V, real=True)
+            if rotated:
+                R_it = self.rotation_matrix(inverse_transpose=True)
+                S = _scores_rotated(X, V, w, _host_to(R_it, V),
+                                    self._order(), pool)
+            else:
+                S = _scores(X, V, w, pool)
+            out[k] = _np(S)[:, keep]
+        return out
+
+    @staticmethod
+    def _rescale_modes(arr, scaling, eigen_norm, ref=None, axes=None):
+        """The shared mode-scaling ladder (None / eigen / max / std).
+
+        ``ref`` supplies the max/std statistics (default ``arr`` itself;
+        ``predict`` normalizes new PCs by the training PCs').  ``axes``
+        picks the reduction axes; the default reduces every non-mode axis
+        (PC series), and EOF grids pass the reference's literal
+        ``(0, 1)``."""
+        if scaling == 'None':
+            return arr
+        if scaling == 'eigen':
+            return arr * eigen_norm
+        if scaling not in ('max', 'std'):
+            raise ValueError(
+                'The scaling option {:} is not valid. Please choose '
+                'one of the following: None, eigen, std, max'
+                .format(scaling)
+            )
+        stats_src = (arr if ref is None else ref).real
+        if axes is None:
+            axes = tuple(range(stats_src.ndim - 1))
+        if scaling == 'max':
+            return arr / np.nanmax(np.abs(stats_src), axis=axes)
+        return arr / np.nanstd(stats_src, axis=axes)
+
+    def _shift_phase(self, arr, phase_shift):
+        """Rotate a complex result by a global phase (no-op for real
+        analyses)."""
+        if self._analysis['is_complex']:
+            return arr * cmath.rect(1, phase_shift)
+        return arr
+
+    def _get_eofs(self, n=None, scaling='None', phase_shift=0,
+                  rotated=True):
+        V = self._get_V(n, rotated=rotated)
+        grids = self._scatter_to_grid(V)
+        # the reference keys the eigen scaling by the *returned* mode
+        # count here, not by the requested spec (unlike _get_pcs)
+        count = V['left'].shape[1]
+        return {
+            k: self._rescale_modes(
+                self._shift_phase(grid, phase_shift), scaling,
+                self._get_norm(count, sorted=True)[k], axes=(0, 1),
+            )
+            for k, grid in grids.items()
+        }
+
+    def _get_pcs(self, n=None, scaling='None', phase_shift=0,
+                 rotated=True):
+        return {
+            k: self._rescale_modes(
+                self._shift_phase(series, phase_shift), scaling,
+                self._get_norm(n, sorted=True)[k],
+            )
+            for k, series in self._get_U(n, rotated=rotated).items()
+        }
+
     def singular_values(self, n=None):
         """Return the first `n` singular values."""
         return self._get_svals(n)
@@ -360,10 +697,251 @@ class MCA:
         """Return the variance of the first `n` singular vectors."""
         return self._get_variance(n=n, sorted=sorted)
 
+    def scf(self, n=None):
+        """Squared covariance fraction (%) of the first `n` modes."""
+        variance = self._variance[self._var_idx][:n]
+        return (variance ** 2
+                / self._analysis['total_squared_covariance'] * 100)
+
     def explained_variance(self, n=None):
         """Covariance fraction (%) of the first `n` modes."""
         return (self._get_variance(n=n, sorted=True)
                 / self._analysis['total_covariance'] * 100)
+
+    def pcs(self, n=None, scaling='None', phase_shift=0, rotated=True):
+        """Return the first `n` PCs (scaling: None/eigen/max/std)."""
+        return self._get_pcs(n, scaling, phase_shift, rotated)
+
+    def eofs(self, n=None, scaling='None', phase_shift=0, rotated=True):
+        """Return the first `n` EOFs (scaling: None/eigen/max/std)."""
+        return self._get_eofs(n, scaling, phase_shift, rotated)
+
+    def spatial_amplitude(self, n=None, scaling='None', rotated=True):
+        """Spatial amplitude fields of the first `n` EOFs."""
+        amplitudes = {}
+        for key, eof in self.eofs(n, scaling='None', rotated=rotated).items():
+            amp = np.sqrt(eof * eof.conjugate()).real
+            if scaling == 'max':
+                amp = amp / np.nanmax(amp, axis=(0, 1))
+            amplitudes[key] = amp
+        return amplitudes
+
+    def spatial_phase(self, n=None, phase_shift=0, rotated=True):
+        """Spatial phase fields of the first `n` EOFs."""
+        eofs = self.eofs(n, phase_shift=phase_shift, rotated=rotated)
+        return {key: np.arctan2(eof.imag, eof.real).real
+                for key, eof in eofs.items()}
+
+    def temporal_amplitude(self, n=None, scaling='None', rotated=True):
+        """Temporal amplitude series of the first `n` PCs."""
+        amplitudes = {}
+        for key, pc in self.pcs(n, scaling='None', rotated=rotated).items():
+            amp = np.sqrt(pc * pc.conjugate()).real
+            if scaling == 'max':
+                amp = amp / np.nanmax(amp, axis=0)
+            amplitudes[key] = amp
+        return amplitudes
+
+    def temporal_phase(self, n=None, phase_shift=0, rotated=True):
+        """Temporal phase series of the first `n` PCs."""
+        pcs = self.pcs(n, phase_shift=phase_shift, rotated=rotated)
+        return {key: np.arctan2(pc.imag, pc.real).real
+                for key, pc in pcs.items()}
+
+    # --------------------------------------------- correlation pattern maps
+    @staticmethod
+    def _corr_pvalues(r, n_obs):
+        """Two-sided p-values of Pearson correlations:
+        2 * BetaCDF(-|r|; a=b=n/2-1, loc=-1, scale=2) via the regularized
+        incomplete beta function (on the host), evaluated in float64 and
+        returned in ``r``'s dtype: scipy's float32 ``betainc`` is off by
+        up to ~3e-3 near p = 1 at a = 127."""
+        from scipy.special import betainc
+        a = n_obs / 2.0 - 1.0
+        x = np.clip((1.0 - np.abs(np.asarray(r, np.float64))) / 2.0, 0, 1)
+        return (2 * betainc(a, a, x)).astype(r.dtype)
+
+    def _scatter_to_grid(self, data):
+        """Re-insert NaN columns and reshape (n_vars, modes) maps to grid."""
+        out = {}
+        for k, arr in data.items():
+            n_modes = arr.shape[1]
+            full = np.zeros([self._n_variables[k], n_modes],
+                            dtype=arr.dtype) * np.nan
+            full[self._no_nan_index[k], :] = arr
+            out[k] = full.reshape(
+                tuple(self._fields_spatial_shape[k]) + (n_modes,))
+        return out
+
+    def _correlation_maps(self, pairs, n, phase_shift):
+        """Correlation maps field-vs-PCs for ``pairs`` of (field key,
+        PC-source key): projection, rotation, phase shift, centering and
+        the (p, k) contraction on the device; p-values on the host."""
+        pool = self._mode_pool(n, True)
+        keep = self._get_slice(n)
+        _, whiten = self._rotation_weights(pool)
+        R_it = self.rotation_matrix(inverse_transpose=True)
+        if self._analysis['is_complex']:
+            cos_p, sin_p = np.cos(phase_shift), np.sin(phase_shift)
+        else:
+            cos_p, sin_p = 1.0, 0.0
+        self._ensure_complex_fields()
+        basis = self._basis()
+        r, p = {}, {}
+        for key, source in pairs:
+            V = basis[source]
+            rmap = _np(_pattern(
+                self._fields[key], self._fields[source], V,
+                _host_to(whiten, V, real=True), _host_to(R_it, V),
+                self._order(), cos_p, sin_p, pool, keep))
+            r[key] = rmap
+            p[key] = self._corr_pvalues(rmap, self._n_observations[key])
+        return self._scatter_to_grid(r), self._scatter_to_grid(p)
+
+    def homogeneous_patterns(self, n=None, phase_shift=0):
+        """Correlation maps of each field with its own PCs (+ p-values)."""
+        return self._correlation_maps([(k, k) for k in self._keys], n,
+                                      phase_shift)
+
+    def heterogeneous_patterns(self, n=None, phase_shift=0):
+        """Correlation maps of each field with the *other* field's PCs."""
+        other = dict(zip(self._keys, self._keys[::-1]))
+        try:
+            pairs = [(k, other[k]) for k in self._keys]
+        except KeyError:
+            raise KeyError(
+                'Key not found. Two fields needed for heterogenous maps.'
+            )
+        return self._correlation_maps(pairs, n, phase_shift)
+
+    # ------------------------------------------------------- reconstruction
+    def _reconstruct_factors_dev(self, key, mode):
+        """Device rank-k factors ``(S, W)`` of the mode-subset
+        reconstruction of field ``key``."""
+        pool = self._analysis['n_rot']
+        keep = self._get_slice(mode)
+        V = self._basis()[key]
+        col_w, whiten = self._rotation_weights(pool)
+        self._ensure_complex_fields()
+        return _reconstruct_factors(
+            self._fields[key], V, _host_to(whiten, V, real=True),
+            _host_to(self.rotation_matrix(inverse_transpose=True), V),
+            _host_to(col_w, V, real=True),
+            _host_to(self.rotation_matrix(), V),
+            _host_to(1.0 / self._get_norm(pool, sorted=False)[key], V,
+                     real=True),
+            _host_to(self._get_norm(mode, sorted=True)[key], V, real=True),
+            self._order(), pool, keep)
+
+    def _reconstructed_fields(self, mode=None, original_scale=True):
+        """Full-grid reconstruction ``real(S W^H)`` as ONE real product
+        per field on the device, copied to the host once.
+
+        ``real(S W^H) = Re(S) Re(W)^T + Im(S) Im(W)^T`` (stacked real
+        factor blocks); the inverse column scaling folds into ``W`` and
+        the mean add becomes a ones-column of ``A`` against the means
+        column of ``B``; dropped (NaN) columns are NaN rows of ``B``, so
+        the product writes the NaN-masked full grid directly."""
+        rec = {}
+        for k in self._keys:
+            S, W = self._reconstruct_factors_dev(k, mode)
+            if S.is_complex():
+                A = torch.cat([S.real, S.imag], dim=1)
+                B = torch.cat([W.real, W.imag], dim=1)
+            else:
+                A, B = S, W
+            if original_scale:
+                colmul, coladd = self._inverse_scale_vectors(k)
+                if colmul is not None:
+                    B = B * _host_to(colmul, B)[:, None]
+                A = torch.cat([A, torch.ones_like(A[:, :1])], dim=1)
+                B = torch.cat([B, _host_to(coladd, B)[:, None]], dim=1)
+            idx = self._no_nan_index[k]
+            if not idx.all():
+                full = torch.full((self._n_variables[k], B.shape[1]),
+                                  float('nan'), dtype=B.dtype,
+                                  device=B.device)
+                full[torch.as_tensor(idx, device=B.device)] = B
+                B = full
+            rec[k] = _np(A @ B.T).reshape(
+                (-1,) + tuple(self._fields_spatial_shape[k]))
+        return rec
+
+    def reconstructed_fields(self, mode=None, original_scale=True):
+        """Reconstruct input fields from a subset of modes."""
+        return self._reconstructed_fields(mode=mode,
+                                          original_scale=original_scale)
+
+    # ----------------------------------------------------------- prediction
+    def _conform_new_data(self, key, arr):
+        """Pack new data onto the solved grid (flatten the space axes,
+        drop the training NaN columns), upload it in the model's
+        precision and apply the training scaling."""
+        try:
+            flat = arr.reshape(arr.shape[0], self._n_variables[key])
+            flat = flat[:, self._no_nan_index[key]]
+        except ValueError as err:
+            if arr.ndim != len(self._shape[key]):
+                msg = (
+                    'Error in {:} field. Dimension of new data ({:}) '
+                    'and the original field ({:}) do not match. '
+                    'Did you forget the time dimension?'
+                ).format(key, arr.ndim, len(self._shape[key]))
+            elif arr.shape[1:] != self._field_means[key].shape:
+                msg = (
+                    'Error in {:} field. Spatial dimensions of new '
+                    'data {:} and the original field {:} do not match.'
+                ).format(key, arr.shape[1:], self._shape[key][1:])
+            else:
+                msg = 'Dimension mismatch in {:} field.'.format(key)
+            raise ValueError(msg) from err
+        real = self._basis()[key].real.dtype
+        t = torch.as_tensor(np.ascontiguousarray(flat), device=self._device)
+        t = t.to(_fast._complex_dtype(real) if t.is_complex() else real)
+        return self._scale_X({key: t})[key]
+
+    def predict(self, left=None, right=None, n=None, scaling='None',
+                phase_shift=0):
+        """Project new data onto the singular vectors to predict its PCs
+        (unrotated projection, whitening, rotation mixing and variance
+        ordering on the device)."""
+        new_data = {k: d for k, d in zip(self._keys, (left, right))
+                    if d is not None}
+        basis = self._basis()
+        R_it = self.rotation_matrix(inverse_transpose=True)
+        pool = R_it.shape[0]
+        _, whiten = self._rotation_weights(pool)
+        count = pool if n is None else n
+        predicted = {}
+        for k, arr in new_data.items():
+            packed = self._conform_new_data(k, arr)
+            dtype = torch.promote_types(packed.dtype, basis[k].dtype)
+            packed, V = packed.to(dtype), basis[k].to(dtype)
+            scores = _np(_scores_rotated(
+                packed, V, _host_to(whiten, V, real=True),
+                _host_to(R_it, V), self._order(), pool))[:, :count]
+            scores = self._shift_phase(scores, phase_shift)
+            ref = (self._get_pcs(count, 'None', phase_shift)[k]
+                   if scaling in ('max', 'std') else None)
+            predicted[k] = self._rescale_modes(
+                scores, scaling, self._get_norm(count, sorted=True)[k],
+                ref=ref)
+        return predicted
+
+    # ----------------------------------------------------------- truncation
+    def truncate(self, n):
+        """Truncate the solution to the first `n` modes."""
+        if self._analysis['is_rotated'] & (n < self._analysis['n_rot']):
+            raise ValueError(
+                'Cannot truncte rotated solution. Please ensure '
+                '`n` > `n_rot`'
+            )
+        if n < self._singular_values.size:
+            self._singular_values = self._singular_values[:n]
+            # copies, so the dropped columns' memory is freed
+            self._V = {k: v[:, :n].clone() for k, v in self._V.items()}
+            self._analysis['is_truncated'] = True
+            self._analysis['is_truncated_at'] = n
 
     # --------------------------------------------------------- significance
     def rule_n(self, n_runs, n_modes=None, seed=None):

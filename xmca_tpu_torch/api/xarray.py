@@ -1,15 +1,15 @@
-"""``xMCA`` on torch tensors — the labeled-array main-path subset.
+"""``xMCA`` on torch tensors — the labeled-array API.
 
 Counterpart of ``xmca_tpu/api/xarray.py``: the constructor captures
-dims/coords, ``apply_coslat`` weights by sqrt(cos(latitude)), and the
-spectrum getters come back as DataArrays with a 1-based ``mode``
-coordinate.  Works with real xarray when installed, else with
-:mod:`xmca_tpu_torch.compat.xarray_lite`.
+dims/coords, ``apply_coslat`` weights by sqrt(cos(latitude)), and every
+result comes back as a DataArray with a 1-based ``mode`` coordinate (and
+the field's own ``time``/``lat``/``lon`` coordinates).  Works with real
+xarray when installed, else with :mod:`xmca_tpu_torch.compat.xarray_lite`.
 """
 import numpy as np
 
 from xmca_tpu_torch.compat import xr
-from xmca_tpu_torch.api.array import MCA, _not_ported
+from xmca_tpu_torch.api.array import MCA, _host_to, _not_ported
 
 # the labeled array type xMCA takes: xarray's when it is installed, else
 # the built-in lite version with the same subset API
@@ -47,6 +47,38 @@ class xMCA(MCA):
             self._field_coords[key] = field.coords
         super().__init__(*[np.asarray(f.values) for f in fields],
                          device=device)
+
+    # ------------------------------------------------------------- scaling
+    def _coslat_weights_full(self, k):
+        """sqrt(cos(lat)) weights on the FULL grid of field `k`,
+        flattened.  No epsilon, unlike ``apply_coslat``'s weights: the
+        reference scales new data and undoes the weighting with these."""
+        lat = self._field_coords[k]['lat']
+        lat = np.asarray(getattr(lat, 'values', lat), dtype=np.float64)
+        coslat = np.sqrt(np.cos(np.deg2rad(lat)))
+        weights = np.ones(self._fields_spatial_shape[k]) \
+            * coslat.reshape(coslat.size, 1)
+        return weights.flatten()
+
+    def _coslat_weights(self, k):
+        """sqrt(cos(lat)) weights on the packed columns of field `k`."""
+        return self._coslat_weights_full(k)[self._no_nan_index[k]]
+
+    def _scale_X(self, data_dict):
+        """Center / normalize / coslat-weight new data, per field."""
+        scaled = super()._scale_X(data_dict)
+        if self._analysis['is_coslat_corrected']:
+            scaled = {k: f * _host_to(self._coslat_weights(k), f, real=True)
+                      for k, f in scaled.items()}
+        return scaled
+
+    def _inverse_scale_vectors(self, key):
+        """Adds the coslat un-weighting to the base per-column inverse."""
+        colmul, coladd = super()._inverse_scale_vectors(key)
+        if self._analysis['is_coslat_corrected']:
+            inv_w = 1.0 / self._coslat_weights(key)
+            colmul = inv_w if colmul is None else colmul * inv_w
+        return colmul, coladd
 
     # ----------------------------------------------------------- weighting
     def _weight_columns(self, k, weight):
@@ -100,6 +132,35 @@ class xMCA(MCA):
             name=name, attrs=self._attrs(),
         )
 
+    def _wrap_temporal(self, key, values, n, name):
+        return xr.DataArray(
+            values, dims=['time', 'mode'],
+            coords={'time': self._field_coords[key]['time'],
+                    'mode': self._mode_coord(n, values.shape[-1])},
+            name=name, attrs=self._attrs(),
+        )
+
+    def _wrap_spatial(self, key, values, n, name):
+        coords = self._field_coords[key]
+        return xr.DataArray(
+            values, dims=['lat', 'lon', 'mode'],
+            coords={'lon': coords['lon'], 'lat': coords['lat'],
+                    'mode': self._mode_coord(n, values.shape[-1])},
+            name=name, attrs=self._attrs(),
+        )
+
+    def _wrap_each(self, wrap, maps, n, what):
+        return {k: wrap(k, v, n, ' '.join([self._field_names[k], what]))
+                for k, v in maps.items()}
+
+    def fields(self, original_scale=False):
+        """Return the input fields as labeled DataArrays."""
+        fields = super().fields(original_scale)
+        return {k: xr.DataArray(f, dims=self._field_dims[k],
+                                coords=self._field_coords[k],
+                                name=self._field_names[k])
+                for k, f in fields.items()}
+
     def singular_values(self, n=None):
         """Return the first `n` singular values."""
         return self._wrap_modes(super().singular_values(n), n,
@@ -122,3 +183,97 @@ class xMCA(MCA):
         """Covariance fraction (%) of the first `n` modes."""
         return self._wrap_modes(super().explained_variance(n), n,
                                 'covariance fraction')
+
+    def scf(self, n=None):
+        """Squared covariance fraction (%) of the first `n` modes."""
+        return self._wrap_modes(super().scf(n), n,
+                                'squared covariance fraction')
+
+    def pcs(self, n=None, scaling='None', phase_shift=0, rotated=True):
+        """First `n` PCs as ('time', 'mode') DataArrays."""
+        return self._wrap_each(
+            self._wrap_temporal,
+            super().pcs(n, scaling, phase_shift, rotated), n, 'pcs')
+
+    def eofs(self, n=None, scaling='None', phase_shift=0, rotated=True):
+        """First `n` EOFs as ('lat', 'lon', 'mode') DataArrays."""
+        return self._wrap_each(
+            self._wrap_spatial,
+            super().eofs(n, scaling, phase_shift, rotated), n, 'eofs')
+
+    def spatial_amplitude(self, n=None, scaling='None', rotated=True):
+        """Spatial amplitude fields of the first `n` EOFs."""
+        return self._wrap_each(
+            self._wrap_spatial,
+            super().spatial_amplitude(n, scaling, rotated), n,
+            'spatial amplitude')
+
+    def spatial_phase(self, n=None, phase_shift=0, rotated=True):
+        """Spatial phase fields of the first `n` EOFs."""
+        return self._wrap_each(
+            self._wrap_spatial,
+            super().spatial_phase(n, phase_shift=phase_shift,
+                                  rotated=rotated), n, 'spatial phase')
+
+    def temporal_amplitude(self, n=None, scaling='None', rotated=True):
+        """Temporal amplitude series of the first `n` PCs."""
+        return self._wrap_each(
+            self._wrap_temporal,
+            super().temporal_amplitude(n, scaling, rotated), n,
+            'temporal amplitude')
+
+    def temporal_phase(self, n=None, phase_shift=0, rotated=True):
+        """Temporal phase series of the first `n` PCs."""
+        return self._wrap_each(
+            self._wrap_temporal,
+            super().temporal_phase(n, phase_shift=phase_shift,
+                                   rotated=rotated), n, 'temporal phase')
+
+    def _wrap_patterns(self, pats, pvals, n, what):
+        return (self._wrap_each(self._wrap_spatial, pats, n,
+                                what + ' patterns'),
+                self._wrap_each(self._wrap_spatial, pvals, n,
+                                'pvalues ' + what + ' patterns'))
+
+    def homogeneous_patterns(self, n=None, phase_shift=0):
+        """Homogeneous correlation maps + p-values as DataArrays."""
+        return self._wrap_patterns(
+            *super().homogeneous_patterns(n=n, phase_shift=phase_shift), n,
+            'homogeneous')
+
+    def heterogeneous_patterns(self, n=None, phase_shift=0):
+        """Heterogeneous correlation maps + p-values as DataArrays."""
+        return self._wrap_patterns(
+            *super().heterogeneous_patterns(n=n, phase_shift=phase_shift),
+            n, 'heterogeneous')
+
+    def reconstructed_fields(self, mode=slice(1, None),
+                             original_scale=True):
+        """Reconstruct the original input fields from selected modes."""
+        rec = super().reconstructed_fields(mode=mode,
+                                           original_scale=original_scale)
+        return {k: xr.DataArray(f, dims=self._field_dims[k],
+                                coords=self._field_coords[k],
+                                name='reconstructed_{:}_field'.format(k))
+                for k, f in rec.items()}
+
+    def predict(self, left=None, right=None, n=None, scaling='None',
+                phase_shift=0):
+        """Predict PCs of new labeled data by projection."""
+        data = dict(zip(self._keys, [left, right]))
+        try:
+            values = {k: d if d is None else np.asarray(d.values)
+                      for k, d in data.items()}
+        except AttributeError as err:
+            raise ValueError(
+                'Please provide `xr.DataArray` to `left` and `right`'
+            ) from err
+        pcs_new = super().predict(values['left'], values.get('right'), n,
+                                  scaling, phase_shift)
+        return {
+            k: xr.DataArray(
+                pc, dims=('time', 'mode'),
+                coords={'time': data[k].coords['time'],
+                        'mode': list(range(1, pc.shape[1] + 1))})
+            for k, pc in pcs_new.items()
+        }

@@ -1,15 +1,76 @@
-"""Polar factors and Newton-Schulz iterations on torch tensors.
+"""Field decompositions, polar factors and Newton-Schulz iterations on
+torch tensors.
 
-Counterpart of ``xmca_tpu/core/linalg.py:147-308``.  Every matmul here is
-a plain ``@`` at the tensors' own precision: float32 on the card runs in
-full f32 (PyTorch's default, TF32 off), which is at least as accurate as
-the JAX package's ``HIGHEST`` tier, and there is no counterpart of its
-3-pass ``HIGH`` tier.
+Counterpart of ``xmca_tpu/core/linalg.py``.  Every matmul here is a plain
+``@`` at the tensors' own precision: float32 on the card runs in full f32
+(PyTorch's default, TF32 off), which is at least as accurate as the JAX
+package's ``HIGHEST`` tier, and there is no counterpart of its 3-pass
+``HIGH`` tier.  The small dense factorizations (``eigh``, ``svd``) are
+``torch.linalg``'s on every device: cuSOLVER on the card, LAPACK on the
+CPU.  Not ported: ``_kernel_svd_polar`` (a QDWH stand-in for the TPU's
+slow dense SVD) and ``randomized_decomposition`` (no caller).
 """
 import torch
 
-__all__ = ['ns_polar_schedule', 'ns_polar_apply', 'ns_polar_iterate',
-           'ns_polar_iterate_scaled', 'unitary_polar_factor']
+__all__ = ['safe_reciprocal', 'field_decomposition', 'kernel_svd',
+           'pinv_hermitian_diag', 'ns_polar_schedule', 'ns_polar_apply',
+           'ns_polar_iterate', 'ns_polar_iterate_scaled',
+           'unitary_polar_factor']
+
+
+def safe_reciprocal(s, rel_cutoff=None):
+    """1/s with entries below a relative cutoff zeroed (rank deficiency)."""
+    if rel_cutoff is None:
+        rel_cutoff = torch.finfo(s.dtype).eps * s.shape[-1] * 10
+    cutoff = torch.amax(s, dim=-1, keepdim=True) * rel_cutoff
+    keep = s > cutoff
+    return torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                       torch.zeros_like(s))
+
+
+def field_decomposition(X, method='gram'):
+    """Thin SVD ``X = K @ diag(L) @ M^H`` with ``r = min(n, p)`` modes.
+
+    ``method='gram'``: eigendecompose the smaller Gram matrix (``X^H X``
+    if p <= n, else ``X X^H``) and recover the other factor with one
+    matmul; ``method='svd'``: a direct ``torch.linalg.svd``.
+
+    Returns ``K (n, r)``, ``L (r,)`` descending and ``M (p, r)``.
+    """
+    n, p = X.shape
+    r = min(n, p)
+    if method == 'svd':
+        K, L, Mh = torch.linalg.svd(X, full_matrices=False)
+        return K, L, Mh.mH
+    if method != 'gram':
+        raise ValueError('method must be one of {"gram", "svd"}')
+    if p <= n:
+        w, V = torch.linalg.eigh(X.mH @ X)            # ascending
+        w, V = torch.flip(w, (-1,)), torch.flip(V, (-1,))
+        L = torch.sqrt(torch.clamp(w, min=0.0))
+        K = X @ (V * safe_reciprocal(L))
+        M = V
+    else:
+        w, Q = torch.linalg.eigh(X @ X.mH)
+        w, Q = torch.flip(w, (-1,)), torch.flip(Q, (-1,))
+        L = torch.sqrt(torch.clamp(w, min=0.0))
+        K = Q
+        M = X.mH @ (Q * safe_reciprocal(L))
+    return K[:, :r], L[:r], M[:, :r]
+
+
+def kernel_svd(K, compute_uv=True):
+    """Thin SVD ``(U, s, Vh)`` of a small dense kernel matrix (only ``s``
+    when ``compute_uv`` is False)."""
+    if not compute_uv:
+        return torch.linalg.svdvals(K)
+    return torch.linalg.svd(K, full_matrices=False)
+
+
+def pinv_hermitian_diag(H):
+    """``diag(diag(pinv(H)))``: the inverse's diagonal, degrading
+    gracefully (pseudo-inverse) for a singular ``H``."""
+    return torch.diag(torch.diag(torch.linalg.pinv(H)))
 
 
 def ns_polar_schedule(l0=1e-9, tol=1e-7, max_steps=64):

@@ -29,7 +29,8 @@ def analytic_signal(x):
     n = x.shape[0]
     h = torch.as_tensor(_analytic_weights(n, np.float64), device=x.device)
     Xf = torch.fft.fft(x, dim=0)
-    return torch.fft.ifft(Xf * h.to(Xf.real.dtype)[:, None], dim=0)
+    Xf *= h.to(Xf.real.dtype)[:, None]      # in place: one spectrum held
+    return torch.fft.ifft(Xf, dim=0)
 
 
 def complexify(field, extend=False, period=1):

@@ -8,7 +8,8 @@ ensembles can drop the run.
 """
 import torch
 
-from xmca_tpu_torch.core.linalg import unitary_polar_factor
+from xmca_tpu_torch.core.linalg import (pinv_hermitian_diag,
+                                        unitary_polar_factor)
 
 __all__ = ['varimax', 'promax', 'ensemble_space']
 
@@ -111,8 +112,7 @@ def promax(A, power=1, max_iter=1000, tol=1e-8, polar_method=None,
     G = Xn_rows.mH @ Xn_rows
     L = torch.linalg.solve(G, Xn_rows.mH @ P)
     # rescale columns by sqrt(diag(inv(L^H L)))
-    sigma_inv = torch.diag(torch.diag(torch.linalg.pinv(L.mH @ L)))
-    L = L @ torch.sqrt(sigma_inv.to(dtype))
+    L = L @ torch.sqrt(pinv_hermitian_diag(L.mH @ L).to(dtype))
 
     B = h[:, None].to(dtype) * (Xn_rows @ L)
     R = R @ L
