@@ -42,7 +42,19 @@
    inside the Gram and projection kernels, never stored) for N_GEN seeds
    at the same full width, with the counters reset just before and read
    just after, against ``fast_surrogate_variance_tri`` over the same
-   seeds; then the same function small, on the card and on the CPU.
+   seeds; then the same function small, on the card and on the CPU;
+8. ``boot_path``: ``bootstrapping`` on the main path's model at full
+   width (standard, iterative, and one block spanning the record, which
+   reproduces the model's own data and so its rotated variance), with
+   the counters reset just before and read just after (no kernel runs
+   there); then a small model on the card and on the CPU with the same
+   resample indices;
+9. ``long_path``: a 40-year daily record, 14610 steps x 2 x (250 x 400)
+   cells f32, through ``set_solver(truncate=10) -> normalize ->
+   apply_coslat -> solve(complexify=True) -> rotate(10) ->
+   rule_n(N_LONG_RUNS)``, longer than the analytic fold's 8192 steps;
+   exactly 2 x N_LONG_RUNS launches of syrk and sign_field_sums; then
+   both kernels against their plain versions at that shape.
 
 Any failure exits non-zero; nothing is caught.  The last lines are the
 kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
@@ -59,6 +71,18 @@ N_RUNS = 64          # of the workload's 1000 surrogates: cut for time only
 N_GEN = 32           # generated-surrogate runs: cut for time only
 N_DENSE_RUNS = 16    # Rule-N runs of the dense path: cut for time only
 N_PREDICT = 100      # time steps that predict() projects
+N_BOOT = 16          # standard bootstrap runs: cut for time only
+N_BOOT_ITER = 4      # iterative bootstrap runs (3 modes): cut for time only
+BOOT_BLOCK = 20      # moving-block length (steps)
+# one block spanning the record resamples nothing, so a run solves the
+# model's own data and its rotated variance is the model's but for where
+# the rotation stops: bootstrap runs rotate to tol 1e-4, the model to
+# 1e-8, and a tol-1e-4 varimax stopping point moves a mode's variance by
+# up to ~2% (measured on the CPU in f32 at 256-2000 steps x 2 x 512-2500
+# cells: up to 5.8e-3); the sum over the modes moves far less (1.2e-6)
+SINGLE_BLOCK_TOL = {'mode': 2e-2, 'sum': 1e-3}
+N_LONG = 14610       # 40 years of daily steps: beyond the 8192-step fold
+N_LONG_RUNS = 4      # Rule-N runs of the long record: cut for time only
 SEED = 7
 ENSEMBLE = dict(power=1, tol=1e-4, n_iter=6, polar_method='ns14')
 
@@ -541,9 +565,9 @@ def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
     blocks of ``stats.significance``; returns (variances of the kept
     runs (numpy), totals, number kept, seconds per run)."""
     import numpy as np
-    from xmca_tpu_torch.core.fastpath import hilbert_imag_matrix, start_block
+    from xmca_tpu_torch.core.fastpath import hilbert_operator, start_block
     from xmca_tpu_torch.stats.significance import run_seeds
-    H = torch.tensor(hilbert_imag_matrix(n_obs, np.float32), device=device)
+    H = hilbert_operator(n_obs, torch.float32, device)
     out, totals = [], []
     t0 = time.perf_counter()
     for s in run_seeds(SEED, n_runs):
@@ -1071,6 +1095,306 @@ def small_results(torch):
                        solve, label))
 
 
+def _kept(v):
+    """Runs kept in each mode's row of a bootstrap ensemble: a run whose
+    rotation did not converge leaves its rows zero."""
+    return (v != 0).sum(axis=1)
+
+
+def boot_path(torch, m, card):
+    """``bootstrapping`` on the main path's model at full width: the
+    standard and the iterative strategy, and one block spanning the
+    record against the model's own rotated variance."""
+    import numpy as np
+    from xmca_tpu_torch.ops import _build
+    walls = {}
+    z_before = not m._complexify_pending
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    std = _timed(torch, walls, 'standard', lambda: _vals(m.bootstrapping(
+        N_BOOT, n_modes=N_ROT, block_size=BOOT_BLOCK, seed=SEED)))
+    z_standard = not m._complexify_pending
+    it = _timed(torch, walls, 'iterative', lambda: _vals(m.bootstrapping(
+        N_BOOT_ITER, n_modes=3, block_size=BOOT_BLOCK, strategy='iterative',
+        seed=SEED)))
+    one = _timed(torch, walls, 'single block', lambda: _vals(
+        m.bootstrapping(2, n_modes=N_ROT, block_size=N_OBS, seed=SEED)))
+    launches = _build.launch_counts()
+    growth = torch.cuda.max_memory_allocated() - base
+    var = _vals(m.variance(N_ROT))
+    mode_err = float(np.abs(one / var[:, None] - 1).max())
+    sum_err = float(np.abs(one.sum(axis=0) / var.sum() - 1).max())
+    _print_walls('boot_path at {} x 2 x {} f32 (truncated, complexified, '
+                 'rotate({})), block {} steps; {}'.format(
+                     N_OBS, N_LAT * N_LON, N_ROT, BOOT_BLOCK, card), walls)
+    print('boot_path: standard {:.4f} s/run ({} runs), iterative {:.4f} s/run '
+          '({} runs x 3 modes = {:.4f} s a round); runs kept per mode: '
+          'standard {}, iterative {}; Z resident before: {}, after the '
+          'standard runs: {}, after the iterative runs: {}; peak device '
+          'memory {:.2f} GB above the {:.2f} GB resident; launches {} (the '
+          'bootstrap runs no hand-written kernel); {}'.format(
+              walls['standard'] / N_BOOT, N_BOOT,
+              walls['iterative'] / N_BOOT_ITER, N_BOOT_ITER,
+              walls['iterative'] / (3 * N_BOOT_ITER), _kept(std).tolist(),
+              _kept(it).tolist(), z_before, z_standard,
+              not m._complexify_pending, growth / 1e9, base / 1e9,
+              launches, card))
+    print('boot_path single block ({} steps): rotated variance vs the '
+          "model's, per mode rel {:.2e} (tol {:g}), the sum over modes rel "
+          '{:.2e} (tol {:g}): runs rotate to tol 1e-4, the model to 1e-8'
+          .format(N_OBS, mode_err, SINGLE_BLOCK_TOL['mode'], sum_err,
+                  SINGLE_BLOCK_TOL['sum']))
+    for name, v, shape in (('standard', std, (N_ROT, N_BOOT)),
+                           ('iterative', it, (3, N_BOOT_ITER)),
+                           ('single block', one, (N_ROT, 2))):
+        _check(v.shape == shape and np.isfinite(v).all(),
+               'bootstrap {}: shape {} (expected {}) or non-finite'.format(
+                   name, v.shape, shape))
+        _check((_kept(v) >= 0.9 * shape[1]).all(),
+               'bootstrap {} kept {} of {} runs'.format(
+                   name, _kept(v).tolist(), shape[1]))
+    _check(mode_err <= SINGLE_BLOCK_TOL['mode']
+           and sum_err <= SINGLE_BLOCK_TOL['sum'],
+           "single-block bootstrap differs from the model's variance")
+    return {'walls': walls, 'growth_gb': growth / 1e9}
+
+
+def boot_small(torch):
+    """Both strategies on a small model, on the card and on the CPU, with
+    the CPU's solution carried to the card: the same resample indices and
+    start blocks (CPU generators) on both sides.  The runs rotate to the
+    f32 floor (tol 1e-8), where the fixed point is defined; at 1e-4 the
+    stopping point moves with f32 roundoff."""
+    import numpy as np
+    from xmca_tpu_torch.utils.state import install_state, to_state
+    from xmca_tpu_torch.xarray import xMCA
+    left, right = make_fields(256, 16, 32, seed0=41)
+    cpu = xMCA(left, right, device='cpu')
+    cpu.set_solver(truncate=4, ensemble_tol=1e-8)
+    cpu.normalize()
+    cpu.apply_coslat()
+    cpu.solve(complexify=True)
+    cpu.rotate(4)
+    card = xMCA(left, right, device='cuda')
+    install_state(card, to_state(cpu))
+    card.set_solver(truncate=4, ensemble_tol=1e-8)
+    errs = {}
+    for strategy, n_runs, n_modes in (('standard', 8, 4), ('iterative', 2, 3)):
+        got, ref = (_vals(mm.bootstrapping(n_runs, n_modes=n_modes,
+                                           block_size=16, strategy=strategy,
+                                           seed=SEED))
+                    for mm in (card, cpu))
+        _check(np.array_equal(got == 0, ref == 0) and (ref != 0).any(),
+               'small bootstrap {}: card and CPU keep other runs'.format(
+                   strategy))
+        errs[strategy] = float(np.abs(got[ref != 0] / ref[ref != 0]
+                                      - 1).max())
+    print('small bootstrap card vs CPU at 256 x 2 x 512 (carried state, '
+          'block 16): rel standard {:.2e}, iterative {:.2e} (tol 1e-3)'
+          .format(errs['standard'], errs['iterative']))
+    _check(max(errs.values()) <= 1e-3, 'small bootstrap: card and CPU '
+           'disagree')
+
+
+def make_fields_on_card(torch, n_obs, n_lat, n_lon, seed0):
+    """``make_fields``' kind of red-spectrum f32 fields, drawn on the card
+    from seeded generators (a host draw of 10^9 normals takes minutes) and
+    copied to the host as the DataArrays a user passes."""
+    import numpy as np
+    from xmca_tpu_torch.xarray import DataArray
+    t = torch.arange(n_obs, dtype=torch.float32, device='cuda')
+    k = torch.arange(1, 9, dtype=torch.float32, device='cuda')
+    modes = torch.sin(2 * np.pi * t[:, None] * k[None, :] / n_obs)
+    p = n_lat * n_lon
+    coords = {'time': np.arange(n_obs, dtype=np.float32),
+              'lat': np.linspace(-60, 60, n_lat, dtype=np.float32),
+              'lon': np.linspace(0, 359, n_lon, dtype=np.float32)}
+    out = []
+    for seed in (seed0, seed0 + 1):
+        gen = torch.Generator(device='cuda').manual_seed(seed)
+        data = modes @ torch.randn((8, p), generator=gen, device='cuda')
+        data += torch.randn((n_obs, p), generator=gen, device='cuda')
+        host = data.cpu().numpy()
+        del data
+        out.append(DataArray(host.reshape(n_obs, n_lat, n_lon),
+                             dims=('time', 'lat', 'lon'), coords=coords))
+    return out
+
+
+def long_kernels(torch):
+    """K1 (int8) and K2 at the long record's shape against their plain
+    versions (K1's an f64 matmul on the card), timed beside their bounds
+    and K1's library call."""
+    from xmca_tpu_torch.ops.surrogate import (sign_field_sums,
+                                              sign_field_sums_reference)
+    from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
+    p = N_LAT * N_LON
+    n_pad, p_pad = pad_to(N_LONG, p)
+    X, s = sign_field_sums(99, N_LONG, p, n_pad, p_pad, 'cuda')
+    Xr, sr = sign_field_sums_reference(99, N_LONG, p, n_pad, p_pad, 'cuda')
+    torch.cuda.synchronize()
+    _check(torch.equal(X, Xr) and torch.equal(s, sr),
+           'sign_field_sums differs at {}'.format((N_LONG, p)))
+    k2_err = float((X.int() - Xr.int()).abs().max())
+    del Xr, sr
+    G, ref = syrk(X, pm1=True), syrk_reference(X)
+    torch.cuda.synchronize()
+    k1_err = float((G - ref).abs().max())
+    _check(torch.equal(G, ref), 'syrk int8 differs at {}'.format(
+        (n_pad, p_pad)))
+    del G, ref
+    k1 = dict(shape=[n_pad, p_pad], max_abs_err=k1_err,
+              ms=_time_ms(torch, lambda: syrk(X, pm1=True), 5),
+              plain_ms=_time_ms(torch, lambda: syrk_reference(X), 1),
+              library_ms=_time_ms(torch, lambda: torch._int_mm(X, X.T), 5),
+              **_gram_bound(n_pad, p_pad, 1, 'int8'))
+    del X, s
+    k2 = dict(shape=[n_pad, p_pad], max_abs_err=k2_err,
+              ms=_time_ms(torch, lambda: sign_field_sums(
+                  5, N_LONG, p, n_pad, p_pad, 'cuda'), 5),
+              plain_ms=_time_ms(torch, lambda: sign_field_sums_reference(
+                  5, N_LONG, p, n_pad, p_pad, 'cuda'), 1),
+              library_ms=None,
+              **bound(nbytes=n_pad * p_pad + 4 * p_pad,
+                      calls=N_LONG * p_pad // 128))
+    for name, k in (('syrk int8', k1), ('sign_field_sums', k2)):
+        print('{} at the long shape {}: bit-equal to plain; kernel {:.4f} ms '
+              '= {:.1f}% of its bound {:.4f} ms ({}); plain {:.3f} ms; '
+              'library {}'.format(
+                  name, tuple(k['shape']), k['ms'],
+                  100 * k['bound_ms'] / k['ms'], k['bound_ms'],
+                  k['bound_by'], k['plain_ms'],
+                  'torch._int_mm(X, X.T) {:.4f} ms'.format(k['library_ms'])
+                  if k['library_ms'] else 'none'))
+    return k1, k2
+
+
+def long_solve_stages(torch, Zl, Zr):
+    """The non-fold truncated solve's stages one at a time (warm) on the
+    complex fields, with the algebra of
+    ``core.fastpath.fast_solve_truncated_totals`` and the model's start
+    block; returns the walls and the leading N_ROT singular values."""
+    from xmca_tpu_torch.core import fastpath as fp
+    walls = {}
+    G = _timed(torch, walls, 'two complex Grams',
+               lambda: [fp.temporal_gram(Z) for Z in (Zl, Zr)])
+    La, Lb = _timed(torch, walls, 'two c64 Cholesky',
+                    lambda: [fp._cholesky(g) for g in G])
+    del G
+    M = _timed(torch, walls, 'reduced kernel', lambda: (La.mH @ Lb)
+               / (Zl.shape[0] - 1))
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    omega = fp.start_block(Zl.shape[0], N_ROT, Zl.dtype, gen)
+    U, s, V = _timed(torch, walls, 'subspace SVD (12 iterations)',
+                     lambda: fp.subspace_svd(M, omega, k=N_ROT, n_iter=12))
+    _timed(torch, walls, 'triangular recovery + spatial vectors',
+           lambda: (Zl.mH @ torch.linalg.solve_triangular(La.mH, U,
+                                                           upper=True),
+                    Zr.mH @ torch.linalg.solve_triangular(Lb.mH, V,
+                                                          upper=True)))
+    _timed(torch, walls, 'nuclear norm (26 NS steps)',
+           lambda: fp.nuclear_norm(M))
+    return walls, s.cpu().numpy()
+
+
+def long_path(torch, card):
+    """A 40-year daily record at full grid width through the main path:
+    the solve materializes ``Z`` by FFT and runs the subspace pipeline on
+    the complex fields (no analytic fold beyond 8192 steps); Rule-N
+    builds its n x n Hilbert operator on the card."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import hilbert_operator
+    from xmca_tpu_torch.core.preprocess import analytic_signal
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.xarray import xMCA
+    p = N_LAT * N_LON
+    walls = {}
+    left, right = _timed(torch, walls, 'make fields (card, to host)',
+                         lambda: make_fields_on_card(torch, N_LONG, N_LAT,
+                                                     N_LON, 31))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    m = _timed(torch, walls, 'ingest',
+               lambda: xMCA(left, right, device='cuda'))
+
+    def prepare():
+        m.set_solver(truncate=N_ROT)
+        m.normalize()
+        m.apply_coslat()
+    _timed(torch, walls, 'set_solver + normalize + apply_coslat', prepare)
+    _timed(torch, walls, 'solve (cold)', lambda: m.solve(complexify=True))
+    non_fold = not m._complexify_pending and m._fields['left'].is_complex()
+    _timed(torch, walls, 'rotate', lambda: m.rotate(N_ROT))
+    null = _timed(torch, walls, 'rule_n',
+                  lambda: _vals(m.rule_n(N_LONG_RUNS, seed=SEED)))
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    svals = _vals(m.singular_values(N_ROT))
+    var = _vals(m.variance(N_ROT))
+    stage_walls, s_stages = long_solve_stages(torch, m._fields['left'],
+                                              m._fields['right'])
+    stage_err = float(np.abs(s_stages / svals - 1).max())
+    del m, left, right
+    torch.cuda.empty_cache()
+
+    # the operator Rule-N built: cold and warm build times, and H x
+    # against the FFT analytic signal's imaginary part
+    h_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H = hilbert_operator(N_LONG, torch.float32, 'cuda')
+        torch.cuda.synchronize()
+        h_walls.append(time.perf_counter() - t0)
+    x = torch.randn((N_LONG, 4), device='cuda',
+                    generator=torch.Generator(device='cuda').manual_seed(3))
+    hx = analytic_signal(x.double()).imag
+    h_err = float((H @ x - hx).abs().max() / hx.abs().max())
+    del H, x, hx
+    k1, k2 = long_kernels(torch)
+
+    _print_walls('long_path at {} x 2 x {} f32 (truncate={}, complexified, '
+                 'rotate({}), rule_n({})); {}'.format(
+                     N_LONG, p, N_ROT, N_ROT, N_LONG_RUNS, card), walls)
+    _print_walls('long truncated solve stage by stage (warm, on the '
+                 "model's Z; singular values rel {:.1e} of the model's)"
+                 .format(stage_err), stage_walls)
+    print('long_path: rule_n {:.4f} s/run; solve took the non-fold branch '
+          '(Z by FFT): {}; launches {}; peak device memory {:.2f} GB; '
+          'Hilbert operator ({} x {} f32) built in {:.4f} s cold, {:.4f} s '
+          'warm, H x vs the f64 FFT analytic signal rel {:.2e} (tol 1e-4); '
+          'singular values {}; rotated variance {}; Rule-N kept {} of {} '
+          'runs; {}'.format(
+              walls['rule_n'] / N_LONG_RUNS, non_fold, launches, peak / 1e9,
+              N_LONG, N_LONG, h_walls[0], h_walls[1], h_err,
+              np.array2string(svals, precision=4),
+              np.array2string(var, precision=4), null.shape[1], N_LONG_RUNS,
+              card))
+    _check(non_fold, 'the long solve deferred Z (the fold branch)')
+    _check(stage_err <= 1e-4, 'the stage-by-stage long solve differs from '
+           "the model's: {:.2e}".format(stage_err))
+    # f32 H and an f32 product over 14610 terms against f64 FFTs
+    _check(h_err <= 1e-4, 'the long Hilbert operator is off: {:.2e}'
+           .format(h_err))
+    for name in ('syrk', 'sign_field_sums'):
+        _check(launches.get(name, 0) == 2 * N_LONG_RUNS,
+               'long path launched {} {} times, not 2 x {}'.format(
+                   name, launches.get(name, 0), N_LONG_RUNS))
+    _check(np.isfinite(svals).all() and np.isfinite(var).all()
+           and np.isfinite(null).all(), 'long path: non-finite results')
+    _check(null.shape[0] == N_ROT and null.shape[1] >= 3,
+           'long Rule-N kept {} of {} runs'.format(null.shape[1],
+                                                  N_LONG_RUNS))
+    return (dict(k1, launches=launches['syrk']),
+            dict(k2, launches=launches['sign_field_sums']),
+            {'walls': walls, 'peak_gb': peak / 1e9, 'h_walls': h_walls})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1149,6 +1473,7 @@ def main():
 
     result_path(torch, m)
     dense_path(torch, left, right, m)
+    boot_path(torch, m, card)
     del m, left, right
     torch.cuda.empty_cache()
 
@@ -1173,15 +1498,17 @@ def main():
 
     gen_launches = gen_path(torch)
     gen_small(torch)
+    boot_small(torch)
+    long_k1, long_k2, _ = long_path(torch, card)
 
     kernels = [
         dict(name='syrk', route='cuda', source='xmca_tpu_torch/csrc/syrk.cu',
              replaces='xmca_tpu/ops/syrk.py:95',
-             launches=launches['syrk'], **k1),
+             launches=launches['syrk'], long=long_k1, **k1),
         dict(name='sign_field_sums', route='cuda',
              source='xmca_tpu_torch/csrc/sign_field.cu',
              replaces='xmca_tpu/ops/surrogate.py:403',
-             launches=launches['sign_field_sums'], **k2),
+             launches=launches['sign_field_sums'], long=long_k2, **k2),
         dict(name='surrogate_gram', route='cuda',
              source='xmca_tpu_torch/csrc/surrogate_gram.cu',
              replaces='xmca_tpu/ops/surrogate.py:177',

@@ -1,0 +1,391 @@
+"""The port's public API against the JAX package on CPU, float64.
+
+* The API faults F1-F4: ``xMCA.rule_n`` / ``rule_north`` return labeled
+  arrays, ``rule_n`` and ``bootstrapping`` take ``disable_progress``,
+  ``solve`` raises the reference's all-NaN ``RuntimeError`` where JAX does
+  and nowhere else, and the unported surface raises
+  ``NotImplementedError`` (every JAX ``set_solver`` key is accepted or
+  refused, never a ``TypeError``).
+* ``bootstrapping``: the JAX model's solution is carried into the port
+  (``utils.state``), both packages run the exact spectrum with rotation
+  tolerance 1e-8, and one block spans the resampled axis, so every run
+  resamples nothing and both packages solve the same data: the spectra
+  agree to 1e-7 relative ('standard' and 'iterative', both axes, MCA and
+  xMCA, real and complexified, unrotated and promax).
+* Complexified records longer than the analytic fold's 8192 steps: the
+  (8200 x 12, 8200 x 10) model of the ROADMAP probe against JAX's
+  singular values (1e-6), and the non-fold truncated branch with both
+  packages' threshold patched to 64 steps at (128 x 160, 128 x 140)
+  (1e-7), where ``rule_n`` builds its Hilbert operator above the
+  threshold.
+"""
+import re
+
+import numpy as np
+import pytest
+
+from xmca_tpu.array import MCA as JMCA
+from xmca_tpu.compat import xr as jxr
+from xmca_tpu.xarray import xMCA as JxMCA
+from xmca_tpu_torch.array import MCA as TMCA
+from xmca_tpu_torch.compat import xr as txr
+from xmca_tpu_torch.utils.state import install_state, to_state
+from xmca_tpu_torch.xarray import xMCA as TxMCA
+
+N_OBS, K = 64, 4
+# the same algebra in float64 on identical (carried) data: roundoff only
+BOOT_TOL = 1e-7
+
+
+def _values(x):
+    return np.asarray(getattr(x, 'values', x))
+
+
+def _coord(da, d):
+    return np.asarray(getattr(da.coords[d], 'values', da.coords[d]))
+
+
+def _arrays(n_fields, grid=(8, 20), n_obs=N_OBS):
+    """``n_fields`` (time, lat, lon) fields with 8 shared sinusoidal modes
+    plus noise, and their coordinates."""
+    n_lat, n_lon = grid
+    t = np.arange(n_obs, dtype=np.float64)
+    modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 9)[None] / n_obs)
+    p = n_lat * n_lon
+    out = []
+    for seed in (1, 2)[:n_fields]:
+        r = np.random.default_rng(seed)
+        data = modes @ r.standard_normal((8, p)) + r.standard_normal(
+            (n_obs, p))
+        out.append(data.reshape(n_obs, n_lat, n_lon))
+    coords = {'time': t, 'lat': np.linspace(-60, 60, n_lat),
+              'lon': np.linspace(0, 359, n_lon)}
+    return out, coords
+
+
+def _build(pkg, api, arrays, coords):
+    if api == 'mca':
+        return JMCA(*arrays) if pkg == 'jax' else TMCA(*arrays, device='cpu')
+    xr = jxr if pkg == 'jax' else txr
+    das = [xr.DataArray(a, dims=('time', 'lat', 'lon'), coords=coords)
+           for a in arrays]
+    return JxMCA(*das) if pkg == 'jax' else TxMCA(*das, device='cpu')
+
+
+def _pair(api, n_fields, cplx=True, power=1, truncate=None):
+    """A solved JAX model and a port model holding its state."""
+    arrays, coords = _arrays(n_fields)
+    jm = _build('jax', api, arrays, coords)
+    if truncate:
+        jm.set_solver(truncate=truncate)
+    jm.normalize()
+    if api == 'xmca':
+        jm.apply_coslat()
+    jm.solve(complexify=cplx)
+    if power:
+        jm.rotate(K, power=power)
+    tm = _build('torch', api, arrays, coords)
+    install_state(tm, to_state(jm))
+    return jm, tm
+
+
+# ------------------------------------------------------------------- F1
+def test_xmca_significance_returns_labeled_arrays():
+    """F1: ``xMCA.rule_n`` is a ('mode', 'run') DataArray named 'singular
+    values' with 1-based coordinates; ``rule_north`` a ('mode',) one with
+    the analysis attrs, equal to JAX's."""
+    jm, tm = _pair('xmca', 2)
+    null = tm.rule_n(8, n_modes=3, seed=5)
+    assert isinstance(null, txr.DataArray)
+    assert tuple(null.dims) == ('mode', 'run') and null.name == 'singular values'
+    np.testing.assert_array_equal(_coord(null, 'mode'), [1, 2, 3])
+    np.testing.assert_array_equal(_coord(null, 'run'),
+                                  np.arange(1, null.shape[1] + 1))
+    assert null.shape[1] >= 7 and np.isfinite(_values(null)).all()
+    ref = jm.rule_north(3)
+    got = tm.rule_north(3)
+    assert isinstance(got, txr.DataArray)
+    assert tuple(got.dims) == tuple(ref.dims) == ('mode',)
+    assert got.name == ref.name and dict(got.attrs) == dict(ref.attrs)
+    np.testing.assert_array_equal(_coord(got, 'mode'), _coord(ref, 'mode'))
+    np.testing.assert_allclose(_values(got), _values(ref), rtol=1e-12)
+
+
+# ------------------------------------------------------------------- F2
+@pytest.mark.parametrize('api', ['mca', 'xmca'])
+def test_disable_progress_is_accepted(api):
+    """F2: ``disable_progress`` is taken (and changes nothing: the port
+    shows no progress bar)."""
+    _, tm = _pair(api, 2)
+    quiet = _values(tm.rule_n(4, n_modes=2, seed=3, disable_progress=True))
+    np.testing.assert_array_equal(quiet, _values(tm.rule_n(4, n_modes=2,
+                                                           seed=3)))
+    boot = _values(tm.bootstrapping(2, n_modes=2, block_size=8, seed=3,
+                                    disable_progress=True))
+    np.testing.assert_array_equal(boot, _values(tm.bootstrapping(
+        2, n_modes=2, block_size=8, seed=3)))
+
+
+# ------------------------------------------------------------------- F3
+def _nan_case(cls, case, **kw):
+    rng = np.random.default_rng(0)
+    A, B = rng.standard_normal((64, 30)), rng.standard_normal((64, 20))
+    if case == 'all-nan-weights':
+        m = cls(A, B, **kw)
+        m.apply_weights(left=np.full(30, np.nan), right=np.full(20, np.nan))
+    elif case == 'zero-std':
+        m = cls(np.ones((64, 30)) * np.arange(30.0), B, **kw)
+        m.normalize()
+    else:
+        w = np.ones(30)
+        w[[2, 5]] = np.nan
+        if case.endswith('truncated'):
+            # 16 steps: the wide (Cholesky, subspace) truncated pipeline
+            A, B = A[:16], B[:16]
+        m = cls(A, B, **kw)
+        m.apply_weights(left=w)
+        if case.endswith('truncated'):
+            m.set_solver(truncate=3)
+    return m
+
+
+@pytest.mark.parametrize('case', ['all-nan-weights', 'zero-std',
+                                  'some-nan-weights',
+                                  'some-nan-weights-truncated'])
+def test_all_nan_guard_matches_jax(case):
+    """F3: all-NaN fields (NaN weights everywhere, or a normalize of a
+    field whose every column has zero std) raise the reference's
+    ``RuntimeError`` before any result is installed, in both packages;
+    NaN in some columns only raises in neither (JAX's guard is
+    ``isnan(X).all()``) and gives the same NaN spectrum, from the dense
+    and from the truncated (complexified, folded) solve."""
+    jm = _nan_case(JMCA, case)
+    tm = _nan_case(TMCA, case, device='cpu')
+    if case.startswith('some'):
+        cplx = case.endswith('truncated')
+        jm.solve(complexify=cplx)
+        tm.solve(complexify=cplx)
+        s_j, s_t = jm.singular_values(), tm.singular_values()
+        assert s_t.shape == s_j.shape
+        np.testing.assert_array_equal(np.isnan(s_t), np.isnan(s_j))
+        return
+    for m in (jm, tm):
+        with pytest.raises(RuntimeError, match='Fields are empty'):
+            m.solve()
+        with pytest.raises(RuntimeError, match='solve'):
+            m.singular_values()
+
+
+# ------------------------------------------------------------------- F4
+_JAX_KEYS = dict(method='svd', batch_size=4, spectrum='exact',
+                 subspace_iters=8, truncate=3, seed=2, surrogate_source=
+                 'generated', surrogate_gen_dist='rademacher8',
+                 ensemble_tol=1e-6, ensemble_subspace_iters=4,
+                 runs_per_dispatch=2)
+_REFUSED = dict(mesh=object(), ensemble_axis='runs',
+                surrogate_dtype='float32', surrogate_source='draw',
+                surrogate_gen_dist='normal16')
+_INVALID = dict(method='qr', spectrum='dense', surrogate_source='file',
+                surrogate_gen_dist='uniform')
+_STUBS = ('summary', 'save_analysis', 'load_analysis', 'plot', 'save_plot')
+
+
+@pytest.mark.parametrize('api', ['mca', 'xmca'])
+def test_unported_surface_raises_not_implemented(api):
+    """F4: every JAX ``set_solver`` key is accepted or refused with
+    ``NotImplementedError``; invalid values raise JAX's ``ValueError``;
+    ``batch_size`` and ``runs_per_dispatch`` change nothing;
+    ``spectrum='exact'`` refuses Rule-N (the 'draw' source) but runs
+    bootstrapping; ``set_field_names`` is ported; save/load, ``summary``
+    and the plots are stubs raising ``NotImplementedError``."""
+    jm, tm = _pair(api, 2)
+    arrays, coords = _arrays(2)
+    for key, value in _JAX_KEYS.items():
+        _build('torch', api, arrays, coords).set_solver(**{key: value})
+    for key, value in _REFUSED.items():
+        with pytest.raises(NotImplementedError):
+            tm.set_solver(**{key: value})
+    for key, value in _INVALID.items():
+        with pytest.raises(ValueError) as ref:
+            jm.set_solver(**{key: value})
+        with pytest.raises(ValueError, match=re.escape(str(ref.value))):
+            tm.set_solver(**{key: value})
+    plain = _values(tm.rule_n(4, n_modes=2, seed=9))
+    tm.set_solver(batch_size=3, runs_per_dispatch=5)
+    np.testing.assert_array_equal(
+        _values(tm.rule_n(4, n_modes=2, seed=9)), plain)
+    tm.set_solver(spectrum='exact')
+    with pytest.raises(NotImplementedError):
+        tm.rule_n(4)
+    assert np.isfinite(_values(tm.bootstrapping(2, n_modes=2,
+                                                block_size=8))).all()
+    tm.set_field_names('sst', 'prcp')
+    jm.set_field_names('sst', 'prcp')
+    assert tm._field_names == jm._field_names == {'left': 'sst',
+                                                  'right': 'prcp'}
+    for name in _STUBS:
+        with pytest.raises(NotImplementedError):
+            getattr(tm, name)(1)
+
+
+# --------------------------------------------------------- bootstrapping
+# (api, fields, complexify, rotation power (0: none), solve, strategy,
+#  axis, replace); every value of each axis appears at least twice
+BOOT_CASES = [
+    ('mca', 2, False, 0, 'dense', 'standard', 0, True),
+    ('mca', 2, True, 2, 'dense', 'iterative', 0, False),
+    ('mca', 2, False, 2, 'dense', 'standard', 1, True),
+    ('mca', 1, True, 0, 'dense', 'iterative', 1, False),
+    ('mca', 2, True, 1, 'wide', 'iterative', 0, True),
+    ('xmca', 2, True, 2, 'dense', 'standard', 0, False),
+    ('xmca', 2, False, 0, 'dense', 'iterative', 1, True),
+    ('xmca', 1, False, 2, 'dense', 'iterative', 0, True),
+    ('xmca', 2, True, 0, 'wide', 'standard', 1, False),
+]
+
+
+def _boot_id(case):
+    api, n_fields, cplx, power, solve, strategy, axis, replace = case
+    return '-'.join([api, 'bi' if n_fields == 2 else 'uni',
+                     'cplx' if cplx else 'real',
+                     ('rot%d' % power) if power else 'unrot', solve,
+                     strategy, 'axis%d' % axis,
+                     'replace' if replace else 'perm'])
+
+
+@pytest.mark.parametrize('case', BOOT_CASES, ids=_boot_id)
+def test_bootstrapping_single_block_matches_jax(case):
+    api, n_fields, cplx, power, solve, strategy, axis, replace = case
+    jm, tm = _pair(api, n_fields, cplx, power,
+                   truncate=K if solve == 'wide' else None)
+    for m in (jm, tm):
+        m.set_solver(spectrum='exact', ensemble_tol=1e-8)
+    both = n_fields == 2
+    if axis == 0:
+        block = N_OBS
+    else:
+        block = sum(tm._n_variables[k] for k in tm._keys) if both \
+            else tm._n_variables['left']
+    kw = dict(n_modes=K, axis=axis, on_left=True, on_right=both,
+              block_size=block, replace=replace, strategy=strategy, seed=11)
+    ref = jm.bootstrapping(2, disable_progress=True, **kw)
+    got = tm.bootstrapping(2, **kw)
+    assert _values(got).shape == _values(ref).shape == (K, 2)
+    assert (_values(ref) != 0).all()
+    np.testing.assert_allclose(_values(got), _values(ref), rtol=BOOT_TOL)
+    if api == 'xmca':
+        assert isinstance(got, txr.DataArray)
+        assert tuple(got.dims) == tuple(ref.dims) == ('mode', 'run')
+        assert got.name == ref.name and dict(got.attrs) == dict(ref.attrs)
+        for d in ('mode', 'run'):
+            np.testing.assert_array_equal(_coord(got, d), _coord(ref, d))
+
+
+@pytest.mark.parametrize('kw,match', [
+    (dict(block_size=7), 'multiple of block'),
+    (dict(axis=1, on_right=True, block_size=7), 'multiple of block'),
+    (dict(on_right=True), 'no right field'),
+    (dict(axis=2), 'not a valid axis'),
+    (dict(strategy='blocks'), 'strategy'),
+])
+def test_bootstrapping_errors_match_jax(kw, match):
+    """The reference's ``ValueError`` for a block that does not divide the
+    resampled axis, ``on_right`` without a right field, a bad axis and a
+    bad strategy."""
+    n_fields = 1 if kw.get('on_right') and 'axis' not in kw else 2
+    jm, tm = _pair('mca', n_fields, cplx=False, power=0)
+    for m, extra in ((jm, dict(disable_progress=True)), (tm, {})):
+        with pytest.raises(ValueError, match=match):
+            m.bootstrapping(2, n_modes=2, **dict(kw, **extra))
+
+
+# ---------------------------------------------------- long complexified
+@pytest.mark.parametrize('truncate', [None, 2])
+def test_long_complexified_solve_matches_jax(truncate):
+    """The ROADMAP probe: (8200 x 12, 8200 x 10) complexified, beyond the
+    8192-step fold, dense and ``truncate=2`` (the small-space branch);
+    the port's ``torch.fft`` analytic signal against JAX's circulant path
+    (1e-6 relative)."""
+    rng = np.random.default_rng(3)
+    n = 8200
+    t = np.arange(n)
+    base = np.sin(2 * np.pi * t / 365.25)[:, None]
+    A = base * rng.standard_normal(12) + rng.standard_normal((n, 12))
+    B = base * rng.standard_normal(10) + rng.standard_normal((n, 10))
+    jm, tm = JMCA(A, B), TMCA(A, B, device='cpu')
+    for m in (jm, tm):
+        if truncate:
+            m.set_solver(truncate=truncate)
+        m.solve(complexify=True)
+    s_j = jm.singular_values(2)
+    np.testing.assert_allclose(tm.singular_values(2), s_j, rtol=1e-6)
+    assert not tm._complexify_pending and tm._fields['left'].is_complex()
+
+
+@pytest.fixture
+def short_fold(monkeypatch):
+    """Both packages' analytic-fold threshold at 64 steps (the records
+    below are 128 steps: the branch of records beyond 8192)."""
+    import xmca_tpu.core.preprocess as jpre
+    import xmca_tpu_torch.api.array as tarr
+    monkeypatch.setattr(jpre, '_HILBERT_MATMUL_MAX_N', 64)
+    monkeypatch.setattr(tarr, '_HILBERT_MATMUL_MAX_N', 64)
+
+
+def _long_fields():
+    rng = np.random.default_rng(4)
+    t = np.arange(128)
+    modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 6)[None] / 128)
+    A = modes @ rng.standard_normal((5, 160)) + rng.standard_normal(
+        (128, 160))
+    B = modes @ rng.standard_normal((5, 140)) + rng.standard_normal(
+        (128, 140))
+    return A, B
+
+
+def test_non_fold_truncated_branch_matches_jax(short_fold):
+    """Above the threshold a wide truncated complexified solve builds Z by
+    FFT and runs the subspace pipeline on the complex fields, in both
+    packages: singular values and totals within 1e-7; the rotated
+    variance too."""
+    A, B = _long_fields()
+    jm, tm = JMCA(A, B), TMCA(A, B, device='cpu')
+    for m in (jm, tm):
+        m.set_solver(truncate=K)
+        m.normalize()
+        m.solve(complexify=True)
+        assert not m._complexify_pending
+    np.testing.assert_allclose(tm.singular_values(), jm.singular_values(),
+                               rtol=1e-7)
+    for key in ('total_covariance', 'total_squared_covariance'):
+        np.testing.assert_allclose(tm._analysis[key], jm._analysis[key],
+                                   rtol=1e-7)
+    for m in (jm, tm):
+        m.rotate(K)
+    np.testing.assert_allclose(tm.variance(), jm.variance(), rtol=1e-7)
+
+
+def test_rule_n_above_the_fold_threshold(short_fold, monkeypatch):
+    """``rule_n`` of a record beyond the threshold builds its n x n
+    Hilbert operator on the device (the host build's values, 1e-7 in
+    f32) and gives the null spectra of the same model below it (the
+    fold and the non-fold solve differ by roundoff: 1e-9)."""
+    from xmca_tpu_torch.core.fastpath import hilbert_imag_matrix
+    A, B = _long_fields()
+    nulls = []
+    for patched in (True, False):
+        if not patched:
+            import xmca_tpu_torch.api.array as tarr
+            monkeypatch.setattr(tarr, '_HILBERT_MATMUL_MAX_N', 8192)
+        tm = TMCA(A, B, device='cpu')
+        tm.set_solver(truncate=K)
+        tm.normalize()
+        tm.solve(complexify=True)
+        assert tm._complexify_pending is not patched
+        nulls.append(tm.rule_n(6, n_modes=3, seed=2))
+        if patched:
+            np.testing.assert_allclose(tm._hilbert.numpy(),
+                                       hilbert_imag_matrix(128), rtol=0,
+                                       atol=1e-7)
+    assert nulls[0].shape == (3, 6) and np.isfinite(nulls[0]).all()
+    np.testing.assert_allclose(nulls[0], nulls[1], rtol=1e-9)

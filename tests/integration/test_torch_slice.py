@@ -94,8 +94,9 @@ def test_rotate_and_rule_n_match_jax(solved):
                                rtol=1e-5)
     np.testing.assert_allclose(tm.norm()['left'].values,
                                jm.norm()['left'].values, rtol=1e-5)
-    null_t = tm.rule_n(64, seed=7)
-    null_j = jm.rule_n(64, seed=7, disable_progress=True)
+    # both return ('mode', 'run') DataArrays
+    null_t = tm.rule_n(64, seed=7).values
+    null_j = jm.rule_n(64, seed=7, disable_progress=True).values
     assert null_t.shape[0] == K and null_t.shape[1] >= int(0.9 * 64)
     assert np.isfinite(null_t).all()
     np.testing.assert_allclose(np.quantile(null_t, 0.95, axis=1),

@@ -4,17 +4,20 @@ Counterpart of ``xmca_tpu/api/array.py``: construction and ingestion,
 ``set_solver``, ``apply_weights``, ``normalize``, the exact dense and the
 truncated ``solve``, ``rotate``, the result getters (spectrum, EOFs, PCs,
 amplitude and phase, correlation patterns, reconstruction, ``predict``,
-``truncate``, rotation and correlation matrices, ``fields``), ``rule_n``
-and ``rule_north``.  Fields and singular vectors live on the device named
-at construction (``'cuda'`` by default); every product runs there and only
-a getter's final result is copied to numpy.  Options the port does not
-implement yet raise ``NotImplementedError`` instead of running something
-else.
+``truncate``, rotation and correlation matrices, ``fields``), ``rule_n``,
+``rule_north`` and ``bootstrapping``.  Fields and singular vectors live
+on the device named at construction (``'cuda'`` by default); every
+product runs there and only a getter's final result is copied to numpy.
+Options and methods the port does not implement yet (save/load,
+``summary``, plots) raise ``NotImplementedError`` instead of running
+something else.
 
-Rule-N always runs the accelerator configuration of the JAX package:
-generated +-1 surrogates (draw and syrk kernels), the fast spectrum,
-``grade='fast'``, rotation tolerance 1e-4 with the 14-step Newton-Schulz
-polar, and 6 subspace iterations.
+The Monte-Carlo methods run the accelerator configuration of the JAX
+package.  Rule-N: generated +-1 surrogates (draw and syrk kernels), the
+fast spectrum, ``grade='fast'``, rotation tolerance 1e-4 with the
+14-step Newton-Schulz polar, and 6 subspace iterations.  Bootstrapping:
+the fast spectrum (``set_solver(spectrum='exact')`` picks the dense one)
+and rotation tolerance 1e-4 with the convergence-gated polar.
 """
 import cmath
 
@@ -82,6 +85,16 @@ def _reconstruct_factors(X, V, whiten, R_it, col_w, R, inv_norm, norm_keep,
     rotated spatial vectors (p, k)."""
     S = _scores_rotated(X, V, whiten, R_it, order, pool)[:, keep] * norm_keep
     W = _loadings(V, col_w, R, inv_norm, order, pool)[:, keep]
+    return S, W
+
+
+def _real_factors(S, W):
+    """Real factors ``(A, B)`` with ``A B^T = real(S W^H)``: the real
+    and imaginary blocks stacked side by side, so the product is ONE real
+    matmul."""
+    if S.is_complex():
+        return (torch.cat([S.real, S.imag], dim=1),
+                torch.cat([W.real, W.imag], dim=1))
     return S, W
 
 
@@ -163,10 +176,16 @@ class MCA:
         self._subspace_iters = 12
         self._solver_truncate = None
         self._solver_seed = 0
+        self._ensemble_spectrum = 'fast'
         self._ensemble_tol = None
         self._ensemble_subspace_iters = None
+        self._ensemble_batch_size = None
+        self._ensemble_runs_per_dispatch = None
         self._rotate_iterations = None
         self._rule_n_iterations = None
+        # set when a host multiplier may have put NaN into the fields;
+        # arms solve's all-NaN guard
+        self._nan_guard_dirty = False
 
     # ------------------------------------------------------------ ingestion
     def _ingest(self, data):
@@ -198,11 +217,13 @@ class MCA:
         return 'mca' if self._analysis['is_bivariate'] else 'pca'
 
     # --------------------------------------------------------------- config
-    def set_solver(self, method=None, truncate=None, seed=None,
-                   subspace_iters=None, spectrum=None, surrogate_source=None,
+    def set_solver(self, method=None, batch_size=None, mesh=None,
+                   ensemble_axis='ensemble', spectrum=None,
+                   subspace_iters=None, truncate=None, seed=None,
+                   surrogate_dtype=None, surrogate_source=None,
                    surrogate_gen_dist=None, ensemble_tol=None,
-                   ensemble_subspace_iters=None):
-        """Configure the solver (the ported keys of the JAX API).
+                   ensemble_subspace_iters=None, runs_per_dispatch=None):
+        """Configure the solver; the keys of the JAX API.
 
         ``method``: the exact solve's field decomposition, 'gram'
         (default: eigendecompose the small Gram matrix) or 'svd' (a
@@ -211,34 +232,75 @@ class MCA:
         subspace pipeline (exact totals); without it ``solve`` runs the
         exact dense solver.
         ``seed``: seed of the truncated solve's subspace start block.
-        ``subspace_iters``: the truncated solve's power iterations
-        (default 12).
-        ``ensemble_tol`` / ``ensemble_subspace_iters``: Rule-N's rotation
-        tolerance (default 1e-4) and power iterations (default 6).
-        ``spectrum``, ``surrogate_source`` and ``surrogate_gen_dist``
-        accept only the one configuration the port runs ('fast',
-        'generated', 'rademacher8').
+        ``subspace_iters``: power iterations of the truncated solve and of
+        each bootstrap run (default 12).
+        ``spectrum``: 'fast' (default; the chol/subspace pipeline) or
+        'exact' (dense factorizations) for bootstrap runs; Rule-N runs
+        only 'fast'.
+        ``ensemble_tol``: rotation tolerance inside Rule-N and bootstrap
+        runs (default 1e-4).  ``ensemble_subspace_iters``: Rule-N's power
+        iterations (default 6).
+        ``batch_size``, ``runs_per_dispatch``: accepted and stored, with
+        no effect: the port runs one ensemble run at a time, and the
+        results do not depend on them in the JAX package either.
+        ``surrogate_source`` and ``surrogate_gen_dist`` take only the
+        configuration the port runs ('generated', 'rademacher8');
+        ``mesh``, another ``ensemble_axis`` and ``surrogate_dtype`` are
+        not ported.  Unported values raise ``NotImplementedError``.
         """
-        for name, value, ported in (
-                ('spectrum', spectrum, 'fast'),
-                ('surrogate_source', surrogate_source, 'generated'),
-                ('surrogate_gen_dist', surrogate_gen_dist, 'rademacher8')):
-            if value is not None and value != ported:
-                raise _not_ported('set_solver({}={!r})'.format(name, value))
+        if mesh is not None:
+            raise _not_ported('set_solver(mesh=...)')
+        if ensemble_axis != 'ensemble':
+            raise _not_ported('set_solver(ensemble_axis={!r})'
+                              .format(ensemble_axis))
+        if surrogate_dtype is not None:
+            raise _not_ported('set_solver(surrogate_dtype={!r})'
+                              .format(surrogate_dtype))
         if method is not None:
             if method not in ('gram', 'svd'):
                 raise ValueError("method must be 'gram' or 'svd'")
             self._solver_method = method
+        if batch_size is not None:
+            self._ensemble_batch_size = batch_size
+        if spectrum is not None:
+            if spectrum not in ('exact', 'fast'):
+                raise ValueError("spectrum must be 'exact' or 'fast'")
+            self._ensemble_spectrum = spectrum
+        if subspace_iters is not None:
+            self._subspace_iters = int(subspace_iters)
+        if ensemble_subspace_iters is not None:
+            self._ensemble_subspace_iters = int(ensemble_subspace_iters)
         if truncate is not None:
             self._solver_truncate = int(truncate)
         if seed is not None:
             self._solver_seed = int(seed)
-        if subspace_iters is not None:
-            self._subspace_iters = int(subspace_iters)
+        if surrogate_source is not None:
+            if surrogate_source not in ('draw', 'generated'):
+                raise ValueError(
+                    "surrogate_source must be 'draw' or 'generated'")
+            if surrogate_source != 'generated':
+                raise _not_ported('set_solver(surrogate_source={!r})'
+                                  .format(surrogate_source))
+        if surrogate_gen_dist is not None:
+            if surrogate_gen_dist not in ('normal16', 'normal32',
+                                          'rademacher', 'rademacher8',
+                                          'rademacher1'):
+                raise ValueError(
+                    "surrogate_gen_dist must be 'normal16', "
+                    "'normal32', 'rademacher', 'rademacher8' or "
+                    "'rademacher1'")
+            if surrogate_gen_dist != 'rademacher8':
+                raise _not_ported('set_solver(surrogate_gen_dist={!r})'
+                                  .format(surrogate_gen_dist))
         if ensemble_tol is not None:
             self._ensemble_tol = float(ensemble_tol)
-        if ensemble_subspace_iters is not None:
-            self._ensemble_subspace_iters = int(ensemble_subspace_iters)
+        if runs_per_dispatch is not None:
+            self._ensemble_runs_per_dispatch = int(runs_per_dispatch)
+
+    def set_field_names(self, left='left', right='right'):
+        """Set names of the left/right field, used in plots and save files."""
+        self._field_names['left'] = left
+        self._field_names['right'] = right
 
     # -------------------------------------------------------- preprocessing
     def apply_weights(self, left=None, right=None):
@@ -247,18 +309,23 @@ class MCA:
         for k, w in (('left', left), ('right', right)):
             if w is None or k not in self._fields:
                 continue
+            w = np.asarray(w)
+            if not np.issubdtype(w.dtype, np.number) or np.isnan(w).any():
+                self._nan_guard_dirty = True
             f = self._fields[k]
-            self._fields[k] = f * torch.as_tensor(np.asarray(w),
-                                                  device=self._device,
+            self._fields[k] = f * torch.as_tensor(w, device=self._device,
                                                   dtype=f.dtype)
 
     def normalize(self):
         """Divide each time series by its standard deviation."""
         for k in self._keys:
             f = self._fields[k]
+            stds = np.asarray(self._field_stds[k])
+            if (stds == 0).any() or np.isnan(stds).any():
+                # zero-std columns divide to NaN, as in the reference
+                self._nan_guard_dirty = True
             self._fields[k] = _pre.standardize(
-                f, torch.as_tensor(self._field_stds[k], device=self._device,
-                                   dtype=f.dtype))
+                f, torch.as_tensor(stds, device=self._device, dtype=f.dtype))
         self._analysis['is_normalized'] = True
         self._analysis['is_coslat_corrected'] = False
         self._analysis['method'] = self._get_method_id()
@@ -328,6 +395,16 @@ class MCA:
             X = self._scale_X_inverse(X)
         return X
 
+    def _get_X_dev(self, real=False):
+        """The packed fields on the device; with ``real`` their real parts,
+        and a deferred complexification stays deferred (no Z is built)."""
+        if not (real and self._complexify_pending):
+            self._ensure_complex_fields()
+        if not real:
+            return dict(self._fields)
+        return {k: f.real if f.is_complex() else f
+                for k, f in self._fields.items()}
+
     def _get_fields(self, original_scale=False):
         n_obs = self._n_observations['left']
         fields = {}
@@ -347,13 +424,13 @@ class MCA:
 
     # ---------------------------------------------------------------- solve
     def _hilbert_operator(self, n_obs, dtype):
-        """The real Hilbert operator H (``analytic(x) = x + iHx``),
-        kept on the device once per model."""
-        if self._hilbert is None or self._hilbert.shape[0] != n_obs:
-            self._hilbert = torch.tensor(
-                _fast.hilbert_imag_matrix(n_obs, np.float64),
-                device=self._device)
-        return self._hilbert.to(dtype)
+        """The real Hilbert operator H (``analytic(x) = x + iHx``) in
+        ``dtype``, built on the device; the model keeps the last one."""
+        H = self._hilbert
+        if H is None or H.shape[0] != n_obs or H.dtype != dtype:
+            H = self._hilbert = _fast.hilbert_operator(n_obs, dtype,
+                                                       self._device)
+        return H
 
     def _start_block(self, m, k, dtype):
         gen = torch.Generator(device=self._device)
@@ -367,9 +444,11 @@ class MCA:
         Without ``set_solver(truncate=k)`` this is the exact dense solve
         (per-field Gram or SVD decompositions and one kernel SVD).  A
         truncated solve of fields at least as wide as they are long runs
-        the matmul-only subspace pipeline; when complexified it folds the
-        Hilbert operator into the real fields' Grams and leaves ``Z`` to
-        its first consumer.  Narrower fields take the exact pipeline.
+        the matmul-only subspace pipeline; when complexified and at most
+        ``_HILBERT_MATMUL_MAX_N`` steps long (the JAX package's branch
+        point) it folds the Hilbert operator into the real fields' Grams
+        and leaves ``Z`` to its first consumer, and longer records build
+        ``Z`` by FFT first.  Narrower fields take the exact pipeline.
         """
         if extend:
             raise _not_ported('solve(extend={!r})'.format(extend))
@@ -377,10 +456,13 @@ class MCA:
                                    for f in self._fields.values()):
             raise RuntimeError('Fields are empty. Did you forget to load '
                                'data?')
-        n_obs = self._n_observations['left']
-        if complexify and n_obs > _HILBERT_MATMUL_MAX_N:
-            raise _not_ported('complexify with more than {} time steps'
-                              .format(_HILBERT_MATMUL_MAX_N))
+        # the reference's guard, np.isnan(X).all(): packed fields hold no
+        # NaN, so only a NaN weight or a zero-std normalize can make one
+        # all NaN; raise before any result is installed
+        if self._nan_guard_dirty and any(
+                bool(torch.isnan(f).all()) for f in self._fields.values()):
+            raise RuntimeError('Fields are empty. Did you forget to load '
+                               'data?')
         # a re-solve runs on the complexified fields (the solve mutates
         # the stored data); when this solve defers again, the fold reads
         # only the real part, which is analytic(real(Z)) == Z's
@@ -541,6 +623,15 @@ class MCA:
         if isinstance(spec, slice):
             return spec.stop
         return spec
+
+    def _get_min_mode(self, n=None, rotated=False):
+        """The smallest of the rank, ``n`` and (rotated) ``n_rot``."""
+        n_modes = [self._analysis['rank']]
+        if n is not None:
+            n_modes.append(n)
+        if rotated:
+            n_modes.append(self._analysis['n_rot'])
+        return int(np.min(n_modes))
 
     def _basis(self):
         """The device-resident singular vectors."""
@@ -844,12 +935,7 @@ class MCA:
         the product writes the NaN-masked full grid directly."""
         rec = {}
         for k in self._keys:
-            S, W = self._reconstruct_factors_dev(k, mode)
-            if S.is_complex():
-                A = torch.cat([S.real, S.imag], dim=1)
-                B = torch.cat([W.real, W.imag], dim=1)
-            else:
-                A, B = S, W
+            A, B = _real_factors(*self._reconstruct_factors_dev(k, mode))
             if original_scale:
                 colmul, coladd = self._inverse_scale_vectors(k)
                 if colmul is not None:
@@ -871,6 +957,13 @@ class MCA:
         """Reconstruct input fields from a subset of modes."""
         return self._reconstructed_fields(mode=mode,
                                           original_scale=original_scale)
+
+    def _reconstructed_X_dev(self, key, mode=None):
+        """The scaled, packed mode-subset reconstruction ``real(S W^H)``
+        of field ``key`` on the device (the iterative bootstrap's
+        deflation)."""
+        A, B = _real_factors(*self._reconstruct_factors_dev(key, mode))
+        return A @ B.T
 
     # ----------------------------------------------------------- prediction
     def _conform_new_data(self, key, arr):
@@ -944,9 +1037,15 @@ class MCA:
             self._analysis['is_truncated_at'] = n
 
     # --------------------------------------------------------- significance
-    def rule_n(self, n_runs, n_modes=None, seed=None):
+    def rule_n(self, n_runs, n_modes=None, seed=None,
+               disable_progress=False):
         """Rule N (Overland & Preisendorfer 1982) from generated +-1
-        surrogates; returns an (n_modes, n_kept_runs) array."""
+        surrogates; returns an (n_modes, n_kept_runs) array.
+        ``disable_progress`` is accepted for the JAX API; the port shows
+        no progress bar."""
+        if self._ensemble_spectrum != 'fast':
+            raise _not_ported("rule_n with set_solver(spectrum='exact') "
+                              "(the 'draw' surrogate source)")
         m = self._n_observations
         n = self._n_variables
         slc = self._get_slice(n_modes)
@@ -991,3 +1090,87 @@ class MCA:
             self._get_svals(n), self._n_observations['left'],
             self._analysis['is_complex'],
         )
+
+    def bootstrapping(self, n_runs, n_modes=20, axis=0, on_left=True,
+                      on_right=False, block_size=1, replace=True,
+                      strategy='standard', disable_progress=False,
+                      seed=None):
+        """Monte-Carlo (moving-block) bootstrapping of the model; returns
+        an (n_modes, n_runs) array of variance spectra, zero where a run's
+        rotation did not converge.
+
+        ``strategy='iterative'`` runs the Winkler scheme: round ``mode``
+        resamples the fields minus their reconstruction from the leading
+        ``mode`` modes.  Every run resamples the model's fields afresh
+        (the reference resamples its previous resample).
+        ``disable_progress`` is accepted for the JAX API; the port shows
+        no progress bar.
+        """
+        if strategy not in ('standard', 'iterative'):
+            raise ValueError(
+                "strategy must be 'standard' or 'iterative'")
+        n_modes_max = self._get_min_mode(n_modes, rotated=True)
+        var_surr = np.zeros([n_modes_max, n_runs])
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        n_mode_iters = min(n_modes, n_modes_max)
+        tol = 1e-4 if self._ensemble_tol is None else self._ensemble_tol
+        self._bootstrap_modes(var_surr, n_mode_iters, n_runs, strategy,
+                              axis, on_left, on_right, block_size, replace,
+                              n_modes_max, seed, tol)
+        return var_surr
+
+    def _bootstrap_modes(self, var_surr, n_mode_iters, n_runs, strategy,
+                         axis, on_left, on_right, block_size, replace,
+                         n_modes_max, seed, tol):
+        """The bootstrap rounds on the resident fields: one for
+        'standard', one per mode for 'iterative'."""
+        complexify = self._analysis['is_complex']
+        H = None
+        for mode in range(n_mode_iters):
+            X_surr = self._get_X_dev(real=True)
+            if strategy == 'iterative':
+                # deflate the leading modes on the device
+                X_surr = {k: x - self._reconstructed_X_dev(k, mode)
+                          for k, x in X_surr.items()}
+            if complexify and self._ensemble_spectrum == 'fast':
+                lead = X_surr[self._keys[0]]
+                H = self._hilbert_operator(lead.shape[0], lead.dtype)
+            spectra, converged = _sig.bootstrap_spectra(
+                [X_surr[k] for k in self._keys], n_runs, n_modes_max - mode,
+                axis=axis, on_left=on_left, on_right=on_right,
+                block_size=block_size, replace=replace,
+                complexify=complexify,
+                rotated=self._analysis['is_rotated'],
+                n_rot=self._analysis['n_rot'],
+                power=max(1, self._analysis['power']), tol=tol,
+                method=self._solver_method, seed=seed + mode,
+                spectrum=self._ensemble_spectrum,
+                subspace_iters=self._subspace_iters, hilbert_H=H,
+            )
+            # a run whose rotation did not converge leaves its rows as
+            # they were (the reference skips it)
+            var_surr[mode:, converged] = spectra[converged].T
+            if strategy == 'standard':
+                break
+
+    # -------------------------------------- not ported yet (ROADMAP queue 1)
+    def summary(self, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise _not_ported('summary')
+
+    def save_analysis(self, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise _not_ported('save_analysis')
+
+    def load_analysis(self, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise _not_ported('load_analysis')
+
+    def plot(self, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise _not_ported('plot')
+
+    def save_plot(self, *args, **kwargs):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise _not_ported('save_plot')

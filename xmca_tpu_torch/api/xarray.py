@@ -277,3 +277,42 @@ class xMCA(MCA):
                         'mode': list(range(1, pc.shape[1] + 1))})
             for k, pc in pcs_new.items()
         }
+
+    # --------------------------------------------------------- significance
+    def _wrap_runs(self, values, n, attrs=None):
+        """An (n_modes, n_runs) ensemble as a ('mode', 'run') DataArray
+        with 1-based coordinates."""
+        return xr.DataArray(
+            values, dims=['mode', 'run'],
+            coords={'mode': self._mode_coord(n, values.shape[0]),
+                    'run': np.arange(1, values.shape[1] + 1)},
+            name='singular values', attrs=attrs,
+        )
+
+    def rule_n(self, n_runs, n_modes=None, seed=None,
+               disable_progress=False):
+        """Rule-N surrogate spectra as a ('mode', 'run') DataArray."""
+        return self._wrap_runs(super().rule_n(
+            n_runs, n_modes, seed=seed, disable_progress=disable_progress),
+            n_modes)
+
+    def rule_north(self, n=None):
+        """North's rule-of-thumb uncertainties as a DataArray."""
+        uncertainties = super().rule_north(n=n)
+        return xr.DataArray(
+            uncertainties, dims=['mode'],
+            coords={'mode': self._mode_coord(n, len(uncertainties))},
+            attrs=self._attrs(), name='singular values',
+        )
+
+    def bootstrapping(self, n_runs, n_modes=20, axis=0, on_left=True,
+                      on_right=False, block_size=1, replace=True,
+                      strategy='standard', disable_progress=False,
+                      seed=None):
+        """Bootstrap spectra as a ('mode', 'run') DataArray; ``axis`` is
+        honoured (the reference's wrapper always resamples time)."""
+        return self._wrap_runs(super().bootstrapping(
+            n_runs=n_runs, n_modes=n_modes, axis=axis, on_left=on_left,
+            on_right=on_right, block_size=block_size, replace=replace,
+            strategy=strategy, disable_progress=disable_progress,
+            seed=seed), n_modes, attrs=self._attrs())

@@ -21,8 +21,6 @@ JAX package's kernels do.
 Random start blocks are arguments (``omega``): the caller draws them from
 an explicit ``torch.Generator``, and tests inject the JAX package's own.
 """
-import functools
-
 import numpy as np
 import torch
 
@@ -64,19 +62,40 @@ def _jitter(G, p, jitter_rel, input_eps=None):
     return G + delta * eye
 
 
-@functools.lru_cache(maxsize=8)
 def hilbert_imag_matrix(n, dtype=np.float64):
-    """The real n x n matrix H with ``analytic(x) = x + i H x``.
-
-    Built on the host from float64 FFTs and cached per (n, dtype); the
-    returned array is read-only because the cache shares it.
-    """
+    """The real n x n matrix H with ``analytic(x) = x + i H x``, on the
+    host: the imaginary part of ``ifft(diag(h) fft(I))`` in float64, as
+    the JAX package builds it.  The reference of :func:`hilbert_operator`;
+    it holds two complex n x n arrays, so nothing at run time calls it."""
     h = _analytic_weights(int(n), np.float64)
     F = np.fft.fft(np.eye(int(n)), axis=0)
     A = np.fft.ifft(h[:, None] * F, axis=0)
-    H = np.ascontiguousarray(A.imag.astype(dtype))
-    H.flags.writeable = False
-    return H
+    return np.ascontiguousarray(A.imag.astype(dtype))
+
+
+def hilbert_operator(n, dtype=torch.float64, device='cpu'):
+    """:func:`hilbert_imag_matrix` built on ``device`` in ``dtype``.
+
+    The analytic-signal transform ``F^-1 diag(h) F`` is circulant: a
+    circular convolution with ``a = ifft(h)``, so ``H[i, j] =
+    Im a[(i - j) mod n]``.  One float64 FFT of length n, rounded to
+    ``dtype``, fills the matrix: ``u = [a_rev, a_rev]`` (``a`` reversed)
+    read as the Hankel matrix ``u[i + j]`` is H with its rows reversed.
+    The only n x n buffer is H itself (0.85 GB in f32 at n = 14610).
+    """
+    n = int(n)
+    h = torch.as_tensor(_analytic_weights(n, np.float64), device=device)
+    a_rev = torch.fft.ifft(h).imag.to(dtype).flip(0)
+    u = torch.cat([a_rev, a_rev])
+    return u.as_strided((n, n), (1, 1)).flip(0)
+
+
+def _cholesky(G):
+    """Lower Cholesky factor of ``G``, NaN where the factorization fails
+    (a non-finite or indefinite ``G``) as XLA's is in the JAX package;
+    no error check, so no host read."""
+    L, info = torch.linalg.cholesky_ex(G)
+    return L.masked_fill_(info != 0, float('nan'))
 
 
 def _analytic_fold(G, H):
@@ -97,8 +116,8 @@ def analytic_temporal_gram(X, H, jitter_rel=1e-6):
 def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
     """Chol-reduced kernel of the complexified fields, ``(M, La, Lb)``."""
     dof = Xl.shape[0] - 1
-    La = torch.linalg.cholesky(analytic_temporal_gram(Xl, H, jitter_rel))
-    Lb = torch.linalg.cholesky(analytic_temporal_gram(Xr, H, jitter_rel))
+    La = _cholesky(analytic_temporal_gram(Xl, H, jitter_rel))
+    Lb = _cholesky(analytic_temporal_gram(Xr, H, jitter_rel))
     return (La.mH @ Lb) / dof, La, Lb
 
 
@@ -111,8 +130,8 @@ def temporal_gram(X, jitter_rel=1e-6):
 def reduced_kernel(Xl, Xr, jitter_rel=1e-6):
     """n x n matrix with the singular values of ``Xl^H Xr / dof``."""
     dof = Xl.shape[0] - 1
-    La = torch.linalg.cholesky(temporal_gram(Xl, jitter_rel))
-    Lb = torch.linalg.cholesky(temporal_gram(Xr, jitter_rel))
+    La = _cholesky(temporal_gram(Xl, jitter_rel))
+    Lb = _cholesky(temporal_gram(Xr, jitter_rel))
     return (La.mH @ Lb) / dof, La, Lb
 
 
@@ -153,9 +172,15 @@ def subspace_svd(M, omega, k, n_iter=8, orth='qr'):
     for _ in range(n_iter):
         Q = _orthonormalize(M @ (M.mH @ Q), orth)
     B = Q.mH @ M
-    w, W = torch.linalg.eigh(B @ B.mH)
-    w = torch.flip(w, (-1,))
-    W = torch.flip(W, (-1,))
+    # a non-finite kernel gives NaN triplets (as XLA's eigh does) instead
+    # of torch's error: eigh runs on the identity and its results are
+    # replaced, with no host read
+    BB = B @ B.mH
+    finite = torch.isfinite(BB).all()
+    eye = torch.eye(BB.shape[0], dtype=BB.dtype, device=BB.device)
+    w, W = torch.linalg.eigh(torch.where(finite, BB, eye))
+    w = torch.flip(w.masked_fill(~finite, float('nan')), (-1,))
+    W = torch.flip(W.masked_fill(~finite, float('nan')), (-1,))
     s = torch.sqrt(torch.clamp(w, min=0.0))
     U = Q @ W
     safe = torch.where(s > 0, s, torch.ones_like(s)).to(M.dtype)
@@ -233,6 +258,90 @@ def fast_solve_truncated_totals_analytic(Xl, Xr, H, omega, n_modes,
             torch.sum(torch.abs(M) ** 2))
 
 
+# ---------------------------------------------------------------------------
+# One ensemble run on data (bootstrap resamples): the spectrum or the
+# rotated variance of given fields.  ``omega`` is the run's start block.
+# ---------------------------------------------------------------------------
+
+def _rotated_variance(Vl, Vr, s, power, tol, polar_method, space=None):
+    """Promax of the sqrt(s)-scaled loading stack ``[Vl; Vr]`` (``Vl``
+    alone when ``Vr`` is None): ``(variance descending, converged,
+    n_iter)``; a non-finite variance counts as not converged."""
+    from xmca_tpu_torch.core.rotation import promax
+
+    sqrt_s = torch.sqrt(s).to(Vl.dtype)
+    L = Vl if Vr is None else torch.cat([Vl, Vr], dim=0)
+    L = L * sqrt_s[None, :]
+    L_rot, _, _, converged, n_it = promax(
+        L, power=power, tol=tol, polar_method=polar_method, space=space)
+    n_left = Vl.shape[0]
+    norm_left = torch.linalg.norm(L_rot[:n_left], dim=0)
+    if Vr is None:
+        variance = norm_left ** 2
+    else:
+        variance = norm_left * torch.linalg.norm(L_rot[n_left:], dim=0)
+    variance = torch.sort(variance, descending=True).values
+    return (variance, converged and bool(torch.isfinite(variance).all()),
+            n_it)
+
+
+def fast_rotated_variance_analytic(Xl, Xr, H, omega, n_rot, power=1,
+                                   tol=1e-8, n_iter=8, jitter_rel=1e-6,
+                                   bivariate=True, polar_method='ns'):
+    """Rotated variance spectrum of the COMPLEXIFIED fields from real
+    centered ``Xl``, ``Xr``: analytic reduced kernel, subspace SVD,
+    triangular recovery, ``V = Z^H T`` without Z, data-space promax.
+    Returns ``(variance, converged)``."""
+    if Xr is None or not bivariate:
+        Xr = Xl
+    M, La, Lb = analytic_reduced_kernel(Xl, Xr, H, jitter_rel)
+    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
+    Tl = torch.linalg.solve_triangular(La.mH, U, upper=True)
+    Vl = _analytic_spatial_vectors(Xl, H, Tl)
+    Vr = None
+    if bivariate:
+        Tr = torch.linalg.solve_triangular(Lb.mH, V, upper=True)
+        Vr = _analytic_spatial_vectors(Xr, H, Tr)
+    var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
+    return var, conv
+
+
+def fast_spectrum_analytic(Xl, Xr, H, omega, k, n_iter=8, with_nuclear=True,
+                           jitter_rel=1e-6):
+    """Top-k complexified kernel spectrum from real fields and its total
+    (the surrogate-schedule nuclear norm, or the sum of the k values)."""
+    M, _, _ = analytic_reduced_kernel(Xl, Xr, H, jitter_rel)
+    _, s, _ = subspace_svd(M, omega, k=k, n_iter=n_iter)
+    return s, nuclear_norm_surrogate(M) if with_nuclear else torch.sum(s)
+
+
+def fast_spectrum(Xl, Xr, omega, k, n_iter=8, with_nuclear=True,
+                  jitter_rel=1e-6):
+    """Top-k singular values of the MCA kernel and its total, as
+    :func:`fast_spectrum_analytic` on the fields as given."""
+    M, _, _ = reduced_kernel(Xl, Xr, jitter_rel)
+    _, s, _ = subspace_svd(M, omega, k=k, n_iter=n_iter)
+    return s, nuclear_norm_surrogate(M) if with_nuclear else torch.sum(s)
+
+
+def fast_rotated_variance(Xl, Xr, omega, n_rot, power=1, tol=1e-8, n_iter=8,
+                          jitter_rel=1e-6, bivariate=True,
+                          polar_method='ns'):
+    """Rotated variance spectrum of the fields as given (real or
+    complex), with spatial vectors ``V = X^H (L^-H U)``; returns
+    ``(variance, converged)``."""
+    if Xr is None:
+        Xr = Xl
+    M, La, Lb = reduced_kernel(Xl, Xr, jitter_rel)
+    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
+    Vl = Xl.mH @ torch.linalg.solve_triangular(La.mH, U, upper=True)
+    Vr = None
+    if bivariate:
+        Vr = Xr.mH @ torch.linalg.solve_triangular(Lb.mH, V, upper=True)
+    var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
+    return var, conv
+
+
 def _fold_jitter(Gc, p, H, complexify, jitter_rel):
     """Analytic fold (when complexified) and jitter of a centered
     surrogate Gram accumulated from f32-exact draws."""
@@ -254,12 +363,12 @@ def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, complexify,
     promax in the space :func:`ensemble_space` picks.  Returns
     ``(variance, total, converged, n_iter_rot)``.
     """
-    from xmca_tpu_torch.core.rotation import ensemble_space, promax
+    from xmca_tpu_torch.core.rotation import ensemble_space
 
     bivariate = len(n_vars) == 2
     dof = n_obs - 1
-    La = torch.linalg.cholesky(grams[0])
-    Lb = torch.linalg.cholesky(grams[1]) if bivariate else La
+    La = _cholesky(grams[0])
+    Lb = _cholesky(grams[1]) if bivariate else La
     M = (La.mH @ Lb) / dof
 
     if not rotated:
@@ -279,24 +388,11 @@ def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, complexify,
         return combine_analytic_projection(P) if complexify else P
 
     Vl = spatial(0, La, U)
-    sqrt_s = torch.sqrt(s).to(Vl.dtype)
-    if bivariate:
-        Vr = spatial(1, Lb, V)
-        L = torch.cat([Vl, Vr], dim=0) * sqrt_s[None, :]
-    else:
-        L = Vl * sqrt_s[None, :]
-    n_vars_left = Vl.shape[0]
-    L_rot, _, _, converged, n_it = promax(
-        L, power=power, tol=tol, polar_method=polar_method,
-        space=ensemble_space(L.shape[0], L.shape[1], L.element_size()),
-    )
-    norm_left = torch.linalg.norm(L_rot[:n_vars_left], dim=0)
-    if bivariate:
-        variance = norm_left * torch.linalg.norm(L_rot[n_vars_left:], dim=0)
-    else:
-        variance = norm_left ** 2
-    variance = torch.sort(variance, descending=True).values
-    converged = converged and bool(torch.isfinite(variance).all())
+    Vr = spatial(1, Lb, V) if bivariate else None
+    rows = Vl.shape[0] + (0 if Vr is None else Vr.shape[0])
+    variance, converged, n_it = _rotated_variance(
+        Vl, Vr, s, power, tol, polar_method,
+        space=ensemble_space(rows, Vl.shape[1], Vl.element_size()))
     return variance, torch.sum(variance), converged, n_it
 
 

@@ -28,17 +28,34 @@ def safe_reciprocal(s, rel_cutoff=None):
                        torch.zeros_like(s))
 
 
+def _nan_unless_finite(A, shapes):
+    """NaN tensors of ``shapes`` (pairs of a shape and True for ``A``'s
+    dtype, False for its real dtype) when ``A`` holds a NaN or an
+    infinity, else None.  A factorization of such an input returns these
+    instead of raising, as XLA's do in the JAX package (one host read)."""
+    if bool(torch.isfinite(A).all()):
+        return None
+    return tuple(torch.full(shape, float('nan'), device=A.device,
+                            dtype=A.dtype if same else A.real.dtype)
+                 for shape, same in shapes)
+
+
 def field_decomposition(X, method='gram'):
     """Thin SVD ``X = K @ diag(L) @ M^H`` with ``r = min(n, p)`` modes.
 
     ``method='gram'``: eigendecompose the smaller Gram matrix (``X^H X``
     if p <= n, else ``X X^H``) and recover the other factor with one
-    matmul; ``method='svd'``: a direct ``torch.linalg.svd``.
+    matmul; ``method='svd'``: a direct ``torch.linalg.svd``.  A
+    non-finite ``X`` gives NaN factors.
 
     Returns ``K (n, r)``, ``L (r,)`` descending and ``M (p, r)``.
     """
     n, p = X.shape
     r = min(n, p)
+    nan = _nan_unless_finite(X, (((n, r), True), ((r,), False),
+                                 ((p, r), True)))
+    if nan is not None:
+        return nan
     if method == 'svd':
         K, L, Mh = torch.linalg.svd(X, full_matrices=False)
         return K, L, Mh.mH
@@ -61,10 +78,14 @@ def field_decomposition(X, method='gram'):
 
 def kernel_svd(K, compute_uv=True):
     """Thin SVD ``(U, s, Vh)`` of a small dense kernel matrix (only ``s``
-    when ``compute_uv`` is False)."""
+    when ``compute_uv`` is False); NaN for a non-finite ``K``."""
+    m, n = K.shape
+    r = min(m, n)
+    nan = _nan_unless_finite(K, (((m, r), True), ((r,), False),
+                                 ((r, n), True)))
     if not compute_uv:
-        return torch.linalg.svdvals(K)
-    return torch.linalg.svd(K, full_matrices=False)
+        return torch.linalg.svdvals(K) if nan is None else nan[1]
+    return torch.linalg.svd(K, full_matrices=False) if nan is None else nan
 
 
 def pinv_hermitian_diag(H):

@@ -1,14 +1,22 @@
 """Centering, standardization and Hilbert complexification on tensors.
 
 Counterpart of ``xmca_tpu/core/preprocess.py``.  The analytic signal is a
-batched ``torch.fft`` over all columns.  Boundary extension
-(``extend='exp'/'theta'``) and the circulant path for time axes longer
-than 8192 steps are not ported yet.
+batched ``torch.fft`` over column chunks, exact at any time length (cuFFT
+takes lengths with large prime factors itself), so the JAX package's
+circulant power-of-two path for axes longer than 8192 steps has no
+counterpart here.  Boundary extension (``extend='exp'/'theta'``) is not
+ported yet.
 """
 import numpy as np
 import torch
 
 __all__ = ['center', 'standardize', 'analytic_signal', 'complexify']
+
+# most elements of one column chunk of the analytic signal: a record of
+# up to 2^28 elements takes one batched FFT; a longer one goes in equal
+# chunks (one cuFFT plan), so its spectrum and the FFT's workspace stay
+# ~2 GB each (complex64) however long the record
+_CHUNK_ELEMS = 1 << 28
 
 
 def _analytic_weights(n, dtype):
@@ -25,12 +33,23 @@ def _analytic_weights(n, dtype):
 
 def analytic_signal(x):
     """Analytic signal of ``x (time, space)`` along dim 0
-    (``scipy.signal.hilbert(x, axis=0)``)."""
-    n = x.shape[0]
+    (``scipy.signal.hilbert(x, axis=0)``), one column chunk at a time
+    into the complex output."""
+    n, p = x.shape
     h = torch.as_tensor(_analytic_weights(n, np.float64), device=x.device)
-    Xf = torch.fft.fft(x, dim=0)
-    Xf *= h.to(Xf.real.dtype)[:, None]      # in place: one spectrum held
-    return torch.fft.ifft(Xf, dim=0)
+    n_chunks = -(-n * p // _CHUNK_ELEMS)
+    chunk = -(-p // n_chunks)
+    out = None
+    for c0 in range(0, p, chunk):
+        Xf = torch.fft.fft(x[:, c0:c0 + chunk], dim=0)
+        Xf *= h.to(Xf.real.dtype)[:, None]      # in place: one spectrum
+        Z = torch.fft.ifft(Xf, dim=0)
+        if n_chunks == 1:
+            return Z
+        if out is None:
+            out = torch.empty((n, p), dtype=Z.dtype, device=x.device)
+        out[:, c0:c0 + chunk] = Z
+    return out
 
 
 def complexify(field, extend=False, period=1):
