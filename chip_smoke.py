@@ -49,7 +49,27 @@
    the counters reset just before and read just after (no kernel runs
    there); then a small model on the card and on the CPU with the same
    resample indices;
-9. ``long_path``: a 40-year daily record, 14610 steps x 2 x (250 x 400)
+9. ``saveload_path`` (after ``boot_path``, on the main path's model): its
+   ``info.xmca`` and the three arrays ``save_analysis`` writes, loaded
+   into a fresh ``xMCA`` by the array-level ``load_analysis`` plus the
+   coslat step, the load timed, its getters held to the model's, and
+   ``rule_n(16)`` on both (exactly 2 x 16 launches of syrk and
+   sign_field_sums each, the same spectra over the ratio of the totals);
+   the file round trip where h5py is installed; a time-varying weight on
+   a fresh model against numpy;
+10. ``ensemble_path``: ``rule_n`` on the same model in every other
+   configuration, the counters reset just before and read just after
+   each: 'draw' with the fast (N = 8) and the exact (N = 2, one dense
+   rotated solve a run) spectrum, no kernel launched; the generated
+   'normal16', 'normal32' and 'rademacher' (N = 8, exactly 2 x N launches
+   of surrogate_field and none of syrk/sign_field_sums) and
+   'rademacher1' (N = 16, 2 x N of syrk and sign_field_sums, equal bit
+   for bit to 'rademacher8'); each mean null within 5 standard errors of
+   a +-1 null rotated to the same tolerance; then the fast against the
+   exact spectrum on one field pair, the int8 full-Gram variant against
+   the triangle Gram at 4 seeds, and Rule-N at 256 x 2 x 512 on the card
+   against the CPU;
+11. ``long_path``: a 40-year daily record, 14610 steps x 2 x (250 x 400)
    cells f32, through ``set_solver(truncate=10) -> normalize ->
    apply_coslat -> solve(complexify=True) -> rotate(10) ->
    rule_n(N_LONG_RUNS)``, longer than the analytic fold's 8192 steps;
@@ -1395,6 +1415,425 @@ def long_path(torch, card):
             {'walls': walls, 'peak_gb': peak / 1e9, 'h_walls': h_walls})
 
 
+N_SAVELOAD_RUNS = 16  # Rule-N runs on the saved and the loaded model
+# Rule-N runs of each ensemble configuration: cut for time only
+N_ENS = {'draw': 8, 'exact': 2, 'normal16': 8, 'normal32': 8,
+         'rademacher': 8, 'rademacher1': 16}
+# runs of the +-1 null rotated to tol 1e-8, the 'draw' runs' reference
+N_REF_1E8 = 32
+N_INT8 = 4           # seeds of the int8 variant against the triangle Gram
+_KERNELS = ('syrk', 'sign_field_sums', 'surrogate_gram', 'surrogate_project',
+            'surrogate_field')
+
+
+def _counts(launches):
+    return {k: launches.get(k, 0) for k in _KERNELS}
+
+
+def saveload_path(torch, m, left, right, card):
+    """Save the main path's model and load it into a fresh one: the
+    ``info.xmca`` file and the three arrays ``save_analysis`` writes (the
+    netCDF writer needs h5py, which the card's machine may lack), the
+    array-level load plus ``xMCA``'s coslat step; its getters against the
+    model's, ``rule_n`` on both; the file round trip where h5py is
+    installed; and a time-varying weight on a fresh model."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from xmca_tpu_torch.api.array import MCA
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.xarray import DataArray, xMCA
+    walls = {}
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix='saveload_', dir=_build.BUILD_DIR)
+    _timed(torch, walls, 'info.xmca', lambda: m._create_info_file(folder))
+    info = os.path.join(folder, 'info.xmca')
+
+    def arrays():
+        fields = m.fields(original_scale=True)
+        return ({k: np.ascontiguousarray(_vals(f).real)
+                 for k, f in fields.items()},
+                {k: _vals(e) for k, e in m.eofs(rotated=False).items()},
+                _vals(m.singular_values()), fields)
+    fields, eofs, svals, das = _timed(torch, walls, 'the saved arrays',
+                                      arrays)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def load():
+        lm = xMCA(device='cuda')
+        lm._field_coords = {k: da.coords for k, da in das.items()}
+        lm._field_dims = {k: da.dims for k, da in das.items()}
+        MCA.load_analysis(lm, info, fields=fields, eofs=eofs,
+                          singular_values=svals)
+        if lm._analysis['is_coslat_corrected']:
+            lm.apply_coslat()
+        return lm
+    lm = _timed(torch, walls, 'load (array level + coslat)', load)
+    load_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # normalize resets the coslat flag, so a normalized and coslat-weighted
+    # analysis loads without its weights (the JAX package and the original
+    # xmca do the same); weight it again, as the original's own test does
+    coslat_lost = not lm._analysis['is_coslat_corrected']
+    if coslat_lost:
+        lm.apply_coslat()
+    sv_equal = np.array_equal(_vals(lm.singular_values(N_ROT)),
+                              _vals(m.singular_values(N_ROT)))
+    eof_equal = all(np.array_equal(_vals(a[k]), _vals(b[k]), equal_nan=True)
+                    for a, b in [(lm.eofs(N_ROT, rotated=False),
+                                  m.eofs(N_ROT, rotated=False))]
+                    for k in a)
+    errs = {'variance': _rel(lm.variance(N_ROT), m.variance(N_ROT)),
+            'eofs': max(_rel(lm.eofs(N_ROT)[k], m.eofs(N_ROT)[k])
+                        for k in ('left', 'right')),
+            'pcs': max(_rel(lm.pcs(N_ROT)[k], m.pcs(N_ROT)[k])
+                       for k in ('left', 'right'))}
+    nulls, launches = [], []
+    for model in (m, lm):
+        _build.reset_launch_counts()
+        nulls.append(_timed(torch, walls, 'rule_n({}) {}'.format(
+            N_SAVELOAD_RUNS, 'loaded' if model is lm else 'saved'),
+            lambda: _vals(model.rule_n(N_SAVELOAD_RUNS, seed=SEED))))
+        launches.append(_counts(_build.launch_counts()))
+    scale = float(_vals(lm.variance()).sum() / _vals(m.variance()).sum())
+    null_err = float(np.abs(nulls[1] / (nulls[0] * scale) - 1).max())
+    del lm
+    file_trip = 'not run: h5py is not installed'
+    if importlib.util.find_spec('h5py') is not None:
+        def trip():
+            m.save_analysis(os.path.join(folder, 'files'))
+            fm = xMCA(device='cuda')
+            fm.load_analysis(os.path.join(folder, 'files', 'info.xmca'))
+            return _vals(fm.singular_values(N_ROT))
+        s_files = _timed(torch, walls, 'save_analysis + load_analysis',
+                         trip)
+        _check(np.array_equal(s_files, _vals(m.singular_values(N_ROT))),
+               'the file round trip changed the singular values')
+        file_trip = 'ran (h5py): singular values equal'
+    shutil.rmtree(folder)
+
+    # a ('time',) weight takes the host path: field to the host, product,
+    # back to the card
+    fresh = xMCA(left, right, device='cuda')
+    w = np.linspace(0.5, 1.5, N_OBS).astype(np.float32)
+    weight = DataArray(w, dims=('time',), coords={'time': left.coords[
+        'time'].values})
+    _timed(torch, walls, 'apply_weights(time-varying)',
+           lambda: fresh.apply_weights(left=weight))
+    cols = np.random.default_rng(3).choice(N_LAT * N_LON, 64, replace=False)
+    x = np.asarray(left.values, dtype=np.float64).reshape(N_OBS, -1)[:, cols]
+    ref = (x - x.mean(axis=0)) * w[:, None]
+    got = fresh._fields['left'][:, torch.as_tensor(cols, device='cuda')]
+    w_err = _rel(got.cpu().numpy(), ref)
+    w_dtype = fresh._fields['left'].dtype
+    del fresh
+
+    _print_walls('saveload_path at {} x 2 x {} f32 (the main path model: '
+                 'truncated, complexified, rotate({})); {}'.format(
+                     N_OBS, N_LAT * N_LON, N_ROT, card), walls)
+    print('saveload_path: load grew device memory by {:.2f} GB at its peak; '
+          'singular values equal: {}, unrotated EOFs equal: {}; coslat '
+          'weights lost by the load (kept from the JAX package): {}; rel '
+          'errors variance {:.2e} (tol 1e-5), rotated EOFs {:.2e} (tol '
+          '1e-4), PCs {:.2e} (tol 1e-4); rule_n({}) saved vs loaded at the '
+          'same seed, over the ratio of the rescaling totals {:.8f}: rel '
+          '{:.2e} (tol 1e-4); launches saved {}, loaded {}; file round '
+          'trip {}; time-varying weight: 64 columns vs numpy rel {:.2e} '
+          '(tol 1e-6), field dtype {}'.format(
+              load_gb, sv_equal, eof_equal, coslat_lost, errs['variance'],
+              errs['eofs'], errs['pcs'], N_SAVELOAD_RUNS, scale, null_err,
+              launches[0], launches[1], file_trip, w_err, w_dtype))
+    _check(sv_equal and eof_equal, 'the load changed the singular values '
+           'or the unrotated EOFs')
+    _check(errs['variance'] <= 1e-5 and errs['eofs'] <= 1e-4
+           and errs['pcs'] <= 1e-4, 'the loaded getters differ: {}'
+           .format(errs))
+    for lc in launches:
+        _check(lc['syrk'] == lc['sign_field_sums'] == 2 * N_SAVELOAD_RUNS,
+               'rule_n on the saved/loaded model launched {}'.format(lc))
+    _check(null_err <= 1e-4 and min(n.shape[1] for n in nulls)
+           >= 0.9 * N_SAVELOAD_RUNS and np.isfinite(nulls[1]).all(),
+           'the loaded model\'s Rule-N differs: {:.2e}'.format(null_err))
+    _check(w_err <= 1e-6 and w_dtype == torch.float32,
+           'the time-varying weight is off: {:.2e} {}'.format(w_err, w_dtype))
+    return {'walls': walls, 'load_gb': load_gb}
+
+
+def _config(m, name):
+    """Point ``m``'s Rule-N at configuration ``name`` with set_solver:
+    'draw' and 'exact' leave the rotation settings to ``rule_n``'s
+    resolution; the generated ones pin them at the values it resolves to
+    for the generated source (tol 1e-4, 6 iterations), 'rademacher8 at
+    1e-8' at those it resolves to for 'draw' (tol 1e-8, 12)."""
+    if name == 'draw':
+        m.set_solver(surrogate_source='draw')
+    elif name == 'exact':
+        m.set_solver(spectrum='exact', surrogate_source='draw')
+    elif name == 'rademacher8 at 1e-8':
+        m.set_solver(spectrum='fast', surrogate_source='generated',
+                     surrogate_gen_dist='rademacher8', ensemble_tol=1e-8,
+                     ensemble_subspace_iters=m._subspace_iters)
+    else:
+        m.set_solver(spectrum='fast', surrogate_source='generated',
+                     surrogate_gen_dist=name, ensemble_tol=1e-4,
+                     ensemble_subspace_iters=6)
+
+
+def _z(null, ref):
+    """Per mode |mean difference| over its standard error, the spread
+    taken from the reference's runs (32 or 64; both samples share it if
+    they are the same null, and a sample of 2 runs cannot estimate it)."""
+    import numpy as np
+    se = ref.std(axis=1, ddof=1) * np.sqrt(1.0 / null.shape[1]
+                                           + 1.0 / ref.shape[1])
+    return np.abs(null.mean(axis=1) - ref.mean(axis=1)) / se
+
+
+def ensemble_path(torch, m, null_r8, card):
+    """Rule-N on the main path's model in every other configuration: the
+    'draw' source with the fast and the exact spectrum, and the generated
+    'normal16', 'normal32', 'rademacher' and 'rademacher1'.  Each mean
+    null is held to a +-1 null rotated alike, within 5 standard errors:
+    the generated ones to the main path's 'rademacher8' null (tol 1e-4),
+    the 'draw' ones to a 'rademacher8' null rotated to their tol 1e-8
+    (a tol-1e-4 varimax stops where the modes' variances are less even,
+    which moves the rescaled null by a few 1e-3, many standard errors)."""
+    import numpy as np
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.stats import significance as sig
+    dense_calls = []
+    dense = sig.solve_rotated_variance
+
+    def counted(*args, **kw):
+        dense_calls.append(1)
+        return dense(*args, **kw)
+    sig.solve_rotated_variance = counted
+    nulls = {'rademacher8': null_r8}
+    rows = {}
+    order = list(N_ENS.items())
+    # after the 'draw' runs, which take the rotation settings rule_n
+    # resolves to for them, and before the generated ones
+    order.insert(2, ('rademacher8 at 1e-8', N_REF_1E8))
+    for name, n_runs in order:
+        _config(m, name)
+        cfg = m._rule_n_config()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        del dense_calls[:]
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        null = nulls[name] = _vals(m.rule_n(n_runs, seed=SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(_build.launch_counts())
+        growth = (torch.cuda.max_memory_allocated() - base) / 1e9
+        left = (torch.cuda.memory_allocated() - base) / 1e9
+        rows[name] = dict(s_per_run=wall / n_runs, kept=null.shape[1] / n_runs,
+                          growth_gb=growth, launches=launches,
+                          dense_solves=len(dense_calls),
+                          tol=cfg['tol'])
+        print('ensemble_path {} (source {}, spectrum {}, dist {}, dtype {}, '
+              'tol {:g}, polar {}, {} subspace iterations), N={}: {:.4f} '
+              's/run, kept {}/{}; peak device memory +{:.2f} GB ({:.2f} GB '
+              'left after); launches {}; dense rotated solves {}; {}'.format(
+                  name, cfg['surrogate_source'], cfg['spectrum'],
+                  cfg['surrogate_dist'], cfg['dtype'], cfg['tol'],
+                  cfg['polar_method'], cfg['subspace_iters'], n_runs,
+                  wall / n_runs, null.shape[1], n_runs, growth, left,
+                  launches, len(dense_calls), card))
+        _check(null.shape == (N_ROT, null.shape[1])
+               and null.shape[1] >= 0.9 * n_runs and np.isfinite(null).all(),
+               '{}: kept {} of {} runs or non-finite'.format(
+                   name, null.shape[1], n_runs))
+        want = dict.fromkeys(_KERNELS, 0)
+        if name in ('normal16', 'normal32', 'rademacher'):
+            want['surrogate_field'] = 2 * n_runs
+        elif name in ('rademacher1', 'rademacher8 at 1e-8'):
+            want['syrk'] = want['sign_field_sums'] = 2 * n_runs
+        _check(launches == want, '{} launched {}, not {}'.format(
+            name, launches, want))
+        _check(len(dense_calls) == (n_runs if name == 'exact' else 0),
+               '{}: {} dense rotated solves'.format(name, len(dense_calls)))
+        if name == 'rademacher1':
+            _config(m, 'rademacher8')
+            r8 = _vals(m.rule_n(n_runs, seed=SEED))
+            _check(np.array_equal(null, r8), "'rademacher1' is not "
+                   "'rademacher8' at the same seed")
+            print("ensemble_path: 'rademacher1' equal bit for bit to "
+                  "'rademacher8' at seed {} (N={})".format(SEED, n_runs))
+    sig.solve_rotated_variance = dense
+    for name, row in rows.items():
+        ref = 'rademacher8 at 1e-8' if row['tol'] < 1e-4 else 'rademacher8'
+        if name == ref:
+            continue
+        z = _z(nulls[name], nulls[ref])
+        print("ensemble_path {}: mean null over the main path's per mode {}; "
+              'against {}: |difference| / SE per mode {} (tol 5)'.format(
+                  name, np.array2string(nulls[name].mean(axis=1)
+                                        / null_r8.mean(axis=1), precision=4),
+                  ref, np.array2string(z, precision=2)))
+        _check(z.max() <= 5, '{}: mean null off the {} one by {:.2f} '
+               'standard errors'.format(name, ref, z.max()))
+    # the main path's configuration again (the pinned values are the ones
+    # the generated source resolves to)
+    _config(m, 'rademacher8')
+    return rows
+
+
+def fast_vs_exact(torch, card):
+    """One injected Gaussian field pair (8 planted modes plus noise, drawn
+    on the card, normalized and coslat-weighted as the main path does, as
+    in PR 5's comparison) through ``_surrogate_variance`` complexified and
+    unrotated with both spectra: the singular values the fast spectrum's
+    12 subspace iterations resolve, at PR 5's bound for truncated against
+    dense (1e-4).  The totals are printed, as PR 5 printed them: the fast
+    one is the nuclear norm of the jittered kernel on the 1e-4 schedule,
+    and the jitter lifts the null half of the analytic Grams' spectrum."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import hilbert_operator, start_block
+    from xmca_tpu_torch.stats.significance import _surrogate_variance
+    from xmca_tpu_torch.xarray import xMCA
+    prep = xMCA(*make_fields_on_card(torch, N_OBS, N_LAT, N_LON, 51),
+                device='cuda')
+    prep.normalize()
+    prep.apply_coslat()
+    fields = [prep._fields[k] for k in ('left', 'right')]
+    del prep
+    H = hilbert_operator(N_OBS, torch.float32, 'cuda')
+    omega = start_block(N_OBS, N_ROT, torch.complex64,
+                        torch.Generator().manual_seed(0)).to('cuda')
+    walls = {}
+    s_f, t_f, _ = _timed(torch, walls, 'fast', lambda: _surrogate_variance(
+        fields, True, False, N_ROT, 1, 1e-8, 'gram', spectrum='fast',
+        n_modes_fast=N_ROT, subspace_iters=12, omega=omega, hilbert_H=H))
+    s_e, t_e, _ = _timed(torch, walls, 'exact', lambda: _surrogate_variance(
+        fields, True, False, N_ROT, 1, 1e-8, 'gram', spectrum='exact'))
+    s_f, s_e = s_f.cpu().numpy(), s_e.cpu().numpy()
+    resolved = (s_e[N_ROT + 16] / s_e[:N_ROT]) ** (2 * 12) <= 1e-6
+    sv_err = np.abs(s_f / s_e[:N_ROT] - 1)
+    tot_err = abs(float(t_f) / float(t_e) - 1)
+    print('fast vs exact spectrum on one injected field pair ({} x 2 x {}, '
+          'complexified): {}; singular values rel {}, resolved modes {} '
+          '(tol 1e-4 there); totals rel {:.2e}; {}'.format(
+              N_OBS, N_LAT * N_LON, ', '.join(
+                  '{} {:.4f} s'.format(k, v) for k, v in walls.items()),
+              np.array2string(sv_err, precision=2),
+              np.nonzero(resolved)[0] + 1, tot_err, card))
+    _check(resolved.sum() >= 4, 'the fast spectrum resolves {} modes'
+           .format(resolved.sum()))
+    _check((sv_err[resolved] <= 1e-4).all(),
+           'the fast and the exact spectra disagree')
+
+
+def int8_variant(torch):
+    """``fast_surrogate_variance_int8`` (full Gram by ``torch._int_mm``)
+    against ``fast_surrogate_variance_tri`` (the syrk kernel) at the same
+    seeds and the same draws, complexified, unrotated and rotated to the
+    f32 floor, at full width."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import (fast_surrogate_variance_int8,
+                                              fast_surrogate_variance_tri,
+                                              hilbert_operator, start_block)
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.stats.significance import run_seeds
+    n_vars = (N_LAT * N_LON, N_LAT * N_LON)
+    H = hilbert_operator(N_OBS, torch.float32, 'cuda')
+    errs, walls, launches = {}, {'int8': 0.0, 'tri': 0.0}, None
+    for rotated in (False, True):
+        kw = dict(H=H, complexify=True, rotated=rotated, n_rot=N_ROT,
+                  tol=1e-8, n_iter=6, polar_method='ns')
+        out = {'int8': [], 'tri': []}
+        for name, fn, extra in (
+                ('int8', fast_surrogate_variance_int8, {}),
+                ('tri', fast_surrogate_variance_tri, {'grade': 'exact'})):
+            if name == 'int8' and rotated:
+                _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            for s in run_seeds(SEED, N_INT8):
+                omega = start_block(N_OBS, N_ROT, torch.complex64,
+                                    torch.Generator().manual_seed(s)
+                                    ).to('cuda')
+                var, total, conv, _ = fn(s, omega, N_OBS, n_vars, **kw,
+                                         **extra)
+                _check(conv, 'int8 variant check: a run did not converge')
+                out[name].append(np.r_[var.cpu().numpy(), float(total)])
+            torch.cuda.synchronize()
+            walls[name] += time.perf_counter() - t0
+            if name == 'int8' and rotated:
+                launches = _counts(_build.launch_counts())
+        errs[rotated] = float(np.abs(np.array(out['int8'])
+                                     / np.array(out['tri']) - 1).max())
+    print('int8 variant vs triangle Gram at {} x 2 x {}, {} seeds: rel '
+          'unrotated {:.2e} (tol 1e-4), rotated (tol 1e-8) {:.2e} (tol '
+          '1e-3); {:.4f} vs {:.4f} s/run; launches of {} rotated int8 runs '
+          '{}'.format(N_OBS, n_vars[0], N_INT8, errs[False], errs[True],
+                      walls['int8'] / (2 * N_INT8),
+                      walls['tri'] / (2 * N_INT8), N_INT8, launches))
+    _check(errs[False] <= 1e-4 and errs[True] <= 1e-3,
+           'the int8 variant and the triangle Gram disagree')
+    _check(launches['sign_field_sums'] == 2 * N_INT8 and launches['syrk'] == 0,
+           'the int8 variant launched {}'.format(launches))
+
+
+def ensemble_small(torch):
+    """Rule-N at 256 x 2 x 512 on the card and on the CPU: the generated
+    distributions through the public ``rule_n`` with the CPU's solution
+    carried to the card (the same Philox bits and start blocks on both);
+    the 'draw' solve on injected bf16 fields (the CPU and CUDA generators
+    give different streams), fast and exact.  Rotations run to the f32
+    floor (tol 1e-8)."""
+    import numpy as np
+    from xmca_tpu_torch.core.fastpath import hilbert_operator, start_block
+    from xmca_tpu_torch.stats.significance import _surrogate_variance
+    from xmca_tpu_torch.utils.state import install_state, to_state
+    from xmca_tpu_torch.xarray import xMCA
+    left, right = make_fields(256, 16, 32, seed0=61)
+    cpu = xMCA(left, right, device='cpu')
+    cpu.set_solver(truncate=4)
+    cpu.normalize()
+    cpu.apply_coslat()
+    cpu.solve(complexify=True)
+    cpu.rotate(4)
+    card = xMCA(left, right, device='cuda')
+    install_state(card, to_state(cpu))
+    errs = {}
+    for dist in ('normal16', 'normal32', 'rademacher', 'rademacher1'):
+        for mm in (card, cpu):
+            mm.set_solver(surrogate_gen_dist=dist, ensemble_tol=1e-8)
+        got, ref = (_vals(mm.rule_n(4, seed=SEED)) for mm in (card, cpu))
+        _check(got.shape == ref.shape, '{}: card and CPU keep other runs'
+               .format(dist))
+        errs[dist] = float(np.abs(got / ref - 1).max())
+    gen = torch.Generator().manual_seed(5)
+    fields = [torch.randn((256, 512), generator=gen).to(torch.bfloat16)
+              for _ in range(2)]
+    H = hilbert_operator(256, torch.float32)
+    omega = start_block(256, 4, torch.complex64, torch.Generator()
+                        .manual_seed(6))
+    for spectrum in ('fast', 'exact'):
+        for rotated in (False, True):
+            res = []
+            for device in ('cuda', 'cpu'):
+                var, total, conv = _surrogate_variance(
+                    [f.to(device) for f in fields], True, rotated, 4, 1,
+                    1e-8, 'gram', spectrum=spectrum, n_modes_fast=4,
+                    subspace_iters=12, omega=omega.to(device),
+                    hilbert_H=H.to(device) if spectrum == 'fast' else None)
+                _check(conv, "small 'draw' solve did not converge")
+                res.append(np.r_[var.cpu().numpy()[:4], float(total)])
+            errs['draw {} {}'.format(spectrum, 'rotated' if rotated
+                                     else 'unrotated')] = float(
+                np.abs(res[0] / res[1] - 1).max())
+    print('small Rule-N card vs CPU at 256 x 2 x 512 (carried state; '
+          "'draw' on injected bf16 fields), rel (tol 1e-3): {}".format(
+              ', '.join('{} {:.1e}'.format(k, v) for k, v in errs.items())))
+    _check(max(errs.values()) <= 1e-3, 'small Rule-N: card and CPU disagree')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1474,6 +1913,8 @@ def main():
     result_path(torch, m)
     dense_path(torch, left, right, m)
     boot_path(torch, m, card)
+    saveload_path(torch, m, left, right, card)
+    ens = ensemble_path(torch, m, null, card)
     del m, left, right
     torch.cuda.empty_cache()
 
@@ -1499,6 +1940,9 @@ def main():
     gen_launches = gen_path(torch)
     gen_small(torch)
     boot_small(torch)
+    fast_vs_exact(torch, card)
+    int8_variant(torch)
+    ensemble_small(torch)
     long_k1, long_k2, _ = long_path(torch, card)
 
     kernels = [
@@ -1517,11 +1961,14 @@ def main():
              source='xmca_tpu_torch/csrc/surrogate_project.cu',
              replaces='xmca_tpu/ops/surrogate.py:259',
              launches=gen_launches['surrogate_project'], **k4),
-        # the oracle of the two above: no path stores the field
+        # on the public path of the generated 'normal16', 'normal32' and
+        # 'rademacher' Rule-N (ensemble_path)
         dict(name='surrogate_field', route='cuda',
              source='xmca_tpu_torch/csrc/surrogate_field.cu',
              replaces='xmca_tpu/ops/surrogate.py:464',
-             launches=gen_launches.get('surrogate_field', 0), **k5),
+             launches=sum(ens[d]['launches']['surrogate_field']
+                          for d in ('normal16', 'normal32', 'rademacher')),
+             **k5),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

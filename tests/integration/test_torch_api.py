@@ -3,9 +3,10 @@
 * The API faults F1-F4: ``xMCA.rule_n`` / ``rule_north`` return labeled
   arrays, ``rule_n`` and ``bootstrapping`` take ``disable_progress``,
   ``solve`` raises the reference's all-NaN ``RuntimeError`` where JAX does
-  and nowhere else, and the unported surface raises
-  ``NotImplementedError`` (every JAX ``set_solver`` key is accepted or
-  refused, never a ``TypeError``).
+  and nowhere else, and only the unported surface (a mesh, another
+  ensemble axis, boundary extension) raises ``NotImplementedError``
+  (every JAX ``set_solver`` key is accepted or refused, never a
+  ``TypeError``).
 * ``bootstrapping``: the JAX model's solution is carried into the port
   (``utils.state``), both packages run the exact spectrum with rotation
   tolerance 1e-8, and one block spans the resampled axis, so every run
@@ -177,30 +178,30 @@ def test_all_nan_guard_matches_jax(case):
 
 
 # ------------------------------------------------------------------- F4
-_JAX_KEYS = dict(method='svd', batch_size=4, spectrum='exact',
-                 subspace_iters=8, truncate=3, seed=2, surrogate_source=
-                 'generated', surrogate_gen_dist='rademacher8',
-                 ensemble_tol=1e-6, ensemble_subspace_iters=4,
-                 runs_per_dispatch=2)
-_REFUSED = dict(mesh=object(), ensemble_axis='runs',
-                surrogate_dtype='float32', surrogate_source='draw',
-                surrogate_gen_dist='normal16')
+_JAX_KEYS = [('method', 'svd'), ('batch_size', 4), ('spectrum', 'exact'),
+             ('subspace_iters', 8), ('truncate', 3), ('seed', 2),
+             ('surrogate_source', 'generated'), ('surrogate_source', 'draw'),
+             ('surrogate_dtype', 'float32'), ('surrogate_dtype', 'bfloat16'),
+             ('ensemble_tol', 1e-6), ('ensemble_subspace_iters', 4),
+             ('runs_per_dispatch', 2)] + [
+    ('surrogate_gen_dist', d) for d in ('normal16', 'normal32', 'rademacher',
+                                        'rademacher8', 'rademacher1')]
+_REFUSED = dict(mesh=object(), ensemble_axis='runs')
 _INVALID = dict(method='qr', spectrum='dense', surrogate_source='file',
                 surrogate_gen_dist='uniform')
-_STUBS = ('summary', 'save_analysis', 'load_analysis', 'plot', 'save_plot')
 
 
 @pytest.mark.parametrize('api', ['mca', 'xmca'])
 def test_unported_surface_raises_not_implemented(api):
-    """F4: every JAX ``set_solver`` key is accepted or refused with
-    ``NotImplementedError``; invalid values raise JAX's ``ValueError``;
-    ``batch_size`` and ``runs_per_dispatch`` change nothing;
-    ``spectrum='exact'`` refuses Rule-N (the 'draw' source) but runs
-    bootstrapping; ``set_field_names`` is ported; save/load, ``summary``
-    and the plots are stubs raising ``NotImplementedError``."""
+    """F4: every JAX ``set_solver`` key is accepted, but for ``mesh`` and
+    another ``ensemble_axis``, which raise ``NotImplementedError`` (as
+    does ``solve(extend=...)``); invalid values raise JAX's
+    ``ValueError``; ``batch_size`` and ``runs_per_dispatch`` change
+    nothing; ``spectrum='exact'`` runs Rule-N (the 'draw' source) and
+    bootstrapping; ``set_field_names`` is ported."""
     jm, tm = _pair(api, 2)
     arrays, coords = _arrays(2)
-    for key, value in _JAX_KEYS.items():
+    for key, value in _JAX_KEYS:
         _build('torch', api, arrays, coords).set_solver(**{key: value})
     for key, value in _REFUSED.items():
         with pytest.raises(NotImplementedError):
@@ -210,22 +211,22 @@ def test_unported_surface_raises_not_implemented(api):
             jm.set_solver(**{key: value})
         with pytest.raises(ValueError, match=re.escape(str(ref.value))):
             tm.set_solver(**{key: value})
+    with pytest.raises(NotImplementedError):
+        _build('torch', api, arrays, coords).solve(complexify=True,
+                                                    extend='exp')
     plain = _values(tm.rule_n(4, n_modes=2, seed=9))
     tm.set_solver(batch_size=3, runs_per_dispatch=5)
     np.testing.assert_array_equal(
         _values(tm.rule_n(4, n_modes=2, seed=9)), plain)
     tm.set_solver(spectrum='exact')
-    with pytest.raises(NotImplementedError):
-        tm.rule_n(4)
+    null = _values(tm.rule_n(4, n_modes=2, seed=9))
+    assert null.shape == (2, 4) and np.isfinite(null).all()
     assert np.isfinite(_values(tm.bootstrapping(2, n_modes=2,
                                                 block_size=8))).all()
     tm.set_field_names('sst', 'prcp')
     jm.set_field_names('sst', 'prcp')
     assert tm._field_names == jm._field_names == {'left': 'sst',
                                                   'right': 'prcp'}
-    for name in _STUBS:
-        with pytest.raises(NotImplementedError):
-            getattr(tm, name)(1)
 
 
 # --------------------------------------------------------- bootstrapping

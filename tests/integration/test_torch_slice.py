@@ -153,17 +153,41 @@ def test_state_carry_over_round_trip():
     np.testing.assert_allclose(back.variance(), tm.variance(), rtol=0)
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """The port loads no module of JAX and none of the JAX package: it
-    keeps its own copies of what it needs (version, compat)."""
-    code = ('import sys, xmca_tpu_torch, xmca_tpu_torch.xarray, '
-            'xmca_tpu_torch.array, xmca_tpu_torch.utils.state, '
-            'xmca_tpu_torch.core.solver; '
-            'print(sorted(m for m in sys.modules if m.split(".")[0] '
-            'in ("xmca_tpu", "jax", "jaxlib")))')
-    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
-                         capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == '[]'
+    keeps its own copies of what it needs (version, compat with netCDF,
+    text, tools, viz).  Every module of the package is imported, then the
+    ones save/load and the plots import lazily (h5py, matplotlib, yaml)
+    are driven on a small model."""
+    code = (
+        'import importlib, pkgutil, sys, os\n'
+        'import matplotlib\n'
+        'matplotlib.use("Agg")\n'
+        'import numpy as np, xmca_tpu_torch\n'
+        'names = [m.name for m in pkgutil.walk_packages('
+        'xmca_tpu_torch.__path__, "xmca_tpu_torch.")]\n'
+        'for name in names:\n'
+        '    importlib.import_module(name)\n'
+        'from xmca_tpu_torch.xarray import xMCA, DataArray\n'
+        'rng = np.random.default_rng(0)\n'
+        'c = {"time": np.arange(20.), "lat": np.linspace(-30, 30, 3), '
+        '"lon": np.linspace(0, 300, 4)}\n'
+        'das = [DataArray(rng.standard_normal((20, 3, 4)), '
+        'dims=("time", "lat", "lon"), coords=c) for _ in range(2)]\n'
+        'm = xMCA(*das, device="cpu")\n'
+        'm.solve()\n'
+        'd = sys.argv[1]\n'
+        'm.save_analysis(d)\n'
+        'xMCA(device="cpu").load_analysis(os.path.join(d, "info.xmca"))\n'
+        'm.save_plot(1, path=os.path.join(d, "m.png"))\n'
+        'm.summary()\n'
+        'print(len(names), sorted(m for m in sys.modules if '
+        'm.split(".")[0] in ("xmca_tpu", "jax", "jaxlib")))\n')
+    out = subprocess.run([sys.executable, '-c', code, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         check=True)
+    n_modules, loaded = out.stdout.strip().splitlines()[-1].split(' ', 1)
+    assert int(n_modules) >= 25 and loaded == '[]'
 
 
 def test_cuda_device_without_card_raises():

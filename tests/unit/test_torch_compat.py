@@ -1,12 +1,15 @@
 """The port's own copies of the JAX package's dependency-free modules.
 
-``xmca_tpu_torch.compat.xarray_lite`` and ``xmca_tpu_torch.version``
-stand in for ``xmca_tpu.compat.xarray_lite`` and ``xmca_tpu.version``
-(the port imports nothing of the JAX package).  Both copies are held
-against their originals on the same numpy inputs: the parts ``xMCA``
-uses (construction, ``.values``, ``.dims``, ``.coords`` and the
-dimension-broadcast product of ``_weight_columns``) and the version
-string.
+``xmca_tpu_torch.compat.xarray_lite``, ``compat.netcdf``,
+``compat.open_dataarray``, ``utils.text``, ``tools.xarray`` and
+``version`` stand in for their ``xmca_tpu`` originals (the port imports
+nothing of the JAX package).  Each copy is held against its original on
+the same inputs: the parts ``xMCA`` uses (construction, ``.values``,
+``.dims``, ``.coords`` and the dimension-broadcast product of
+``_weight_columns``), netCDF files written by either package and read by
+both (real, complex, NaN, coordinate attributes), the text helpers, the
+longitude wrap and map extent (the port's ``get_extent`` raises its
+``KeyError``; the original returns None), and the version string.
 """
 import numpy as np
 import pytest
@@ -32,7 +35,9 @@ def _same(a, b):
     for k in a.coords:
         np.testing.assert_array_equal(a.coords[k].values, b.coords[k].values)
         assert a.coords[k].dims == b.coords[k].dims
-        assert a.coords[k].attrs == b.coords[k].attrs
+        # as text: a NaN _FillValue read from a file is not equal to itself
+        assert ({n: str(v) for n, v in a.coords[k].attrs.items()}
+                == {n: str(v) for n, v in b.coords[k].attrs.items()})
 
 
 def test_construction_values_dims_coords():
@@ -78,3 +83,69 @@ def test_version_strings_equal():
     assert port_version.__version__ == jax_version.__version__
     import xmca_tpu_torch
     assert xmca_tpu_torch.__version__ == jax_version.__version__
+
+
+# ------------------------------------------------------- netCDF and text
+def _netcdf_case(lite, kind):
+    rng = np.random.default_rng(5)
+    values = rng.standard_normal((6, 4, 3))
+    if kind == 'complex':
+        values = values + 1j * rng.standard_normal((6, 4, 3))
+    values[0, 1, 2] = np.nan
+    coords = {'lat': np.linspace(-60, 60, 4),
+              'lon': (np.linspace(0, 359, 3), {'units': 'degrees_east'})}
+    if kind == 'no-time-coord':
+        return lite.DataArray(values, dims=('time', 'lat', 'lon'),
+                              coords=coords, name='sst eofs',
+                              attrs={'is_complex': 'False', 'rank': '3'})
+    coords['time'] = np.arange(6.0)
+    return lite.DataArray(values, dims=('time', 'lat', 'lon'),
+                          coords=coords, name='sst', attrs={'a': 1})
+
+
+@pytest.mark.parametrize('kind', ['real', 'complex', 'no-time-coord'])
+def test_netcdf_round_trips_between_packages(tmp_path, kind):
+    """A file written by either package's lite ``to_netcdf`` (the h5py
+    writer) reads the same in both ``open_dataarray`` functions."""
+    from xmca_tpu.compat import open_dataarray as j_open
+    from xmca_tpu_torch.compat import open_dataarray as t_open
+    for writer, lite in (('jax', jax_lite), ('port', port_lite)):
+        path = str(tmp_path / (writer + '.nc'))
+        _netcdf_case(lite, kind).to_netcdf(path)
+        ref, got = j_open(path), t_open(path)
+        _same(got, ref)
+        assert got.values.dtype == ref.values.dtype
+    _same(t_open(str(tmp_path / 'port.nc')), j_open(str(tmp_path / 'jax.nc')))
+
+
+def test_text_helpers_match():
+    from xmca_tpu.utils import text as jtext
+    from xmca_tpu_torch.utils import text as ttext
+    for s in ('Sea Surface Temperature', 'sst', 'A b C d'):
+        assert ttext.secure_str(s) == jtext.secure_str(s)
+        assert ttext.boldify_str(s) == jtext.boldify_str(s)
+    long = ' '.join(['word'] * 60)
+    assert ttext.wrap_str(long) == jtext.wrap_str(long)
+    assert ttext.wrap_str(long, width=30) == jtext.wrap_str(long, width=30)
+
+
+def test_xarray_tools_match():
+    from xmca_tpu.tools import xarray as jtools
+    from xmca_tpu_torch.tools import xarray as ttools
+    out = []
+    for lite, tools in ((jax_lite, jtools), (port_lite, ttools)):
+        da = lite.DataArray(np.arange(12.0).reshape(3, 4), dims=('lat', 'lon'),
+                            coords={'lat': np.array([-10.0, 0.0, 10.0]),
+                                    'lon': np.array([0.0, 90.0, 200.0,
+                                                     350.0])})
+        tools.is_DataArray(da)
+        with pytest.raises(TypeError):
+            tools.is_DataArray(np.ones(3))
+        out.append((tools.wrap_lon_to_180(da), tools.get_extent(da, 10)))
+    _same(out[1][0], out[0][0])
+    assert out[1][1] == out[0][1]
+    bare = port_lite.DataArray(np.ones((2, 2)), dims=('y', 'x'))
+    assert jtools.get_extent(jax_lite.DataArray(np.ones((2, 2)),
+                                                dims=('y', 'x'))) is None
+    with pytest.raises(KeyError, match='lon'):
+        ttools.get_extent(bare)

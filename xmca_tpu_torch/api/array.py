@@ -5,26 +5,29 @@ Counterpart of ``xmca_tpu/api/array.py``: construction and ingestion,
 truncated ``solve``, ``rotate``, the result getters (spectrum, EOFs, PCs,
 amplitude and phase, correlation patterns, reconstruction, ``predict``,
 ``truncate``, rotation and correlation matrices, ``fields``), ``rule_n``,
-``rule_north`` and ``bootstrapping``.  Fields and singular vectors live
-on the device named at construction (``'cuda'`` by default); every
-product runs there and only a getter's final result is copied to numpy.
-Options and methods the port does not implement yet (save/load,
-``summary``, plots) raise ``NotImplementedError`` instead of running
-something else.
+``rule_north``, ``bootstrapping``, ``summary``, ``plot``/``save_plot``
+and ``load_analysis`` (the array half of save/load; ``xMCA`` writes the
+files).  Fields and singular vectors live on the device named at
+construction (``'cuda'`` by default); every product runs there and only a
+getter's final result is copied to numpy.  Options the port does not
+implement yet (a device mesh, boundary extension) raise
+``NotImplementedError`` instead of running something else.
 
 The Monte-Carlo methods run the accelerator configuration of the JAX
-package.  Rule-N: generated +-1 surrogates (draw and syrk kernels), the
-fast spectrum, ``grade='fast'``, rotation tolerance 1e-4 with the
-14-step Newton-Schulz polar, and 6 subspace iterations.  Bootstrapping:
-the fast spectrum (``set_solver(spectrum='exact')`` picks the dense one)
-and rotation tolerance 1e-4 with the convergence-gated polar.
+package on every device (its branch for ``jax.default_backend() ==
+'tpu'``); ``rule_n``'s docstring tables it.  Bootstrapping: the fast
+spectrum (``set_solver(spectrum='exact')`` picks the dense one) and
+rotation tolerance 1e-4 with the convergence-gated polar.
 """
 import cmath
+import os
+from datetime import datetime
 
 import numpy as np
 import torch
 
 from xmca_tpu_torch.version import __version__
+from xmca_tpu_torch.utils.text import secure_str, wrap_str
 from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core import preprocess as _pre
 from xmca_tpu_torch.core import solver as _solver
@@ -43,6 +46,22 @@ def _not_ported(what):
 
 def _np(x):
     return x.detach().cpu().resolve_conj().numpy()
+
+
+def _torch_dtype(dtype):
+    """A torch floating dtype from a torch dtype, a numpy dtype or a name
+    ('bfloat16', 'float32', ...)."""
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        out = getattr(torch, name, None)
+        if not isinstance(out, torch.dtype):
+            raise TypeError('data type {!r} not understood'.format(dtype))
+    if not out.is_floating_point:
+        raise ValueError('surrogate_dtype must be a real floating dtype, not '
+                         '{}'.format(out))
+    return out
 
 
 def _host_to(x, like, real=False):
@@ -144,12 +163,7 @@ class MCA:
         self._hilbert = None
 
         data = dict(zip(self._keys, fields))
-        for k, f in data.items():
-            self._shape[k] = f.shape
-            self._n_observations[k] = f.shape[0]
-            self._fields_spatial_shape[k] = f.shape[1:]
-            self._n_variables[k] = int(np.prod(f.shape[1:]))
-            self._field_names[k] = k
+        self._set_field_meta(data)
         self._fields = self._ingest(data)
 
         self._analysis = {
@@ -181,6 +195,9 @@ class MCA:
         self._ensemble_subspace_iters = None
         self._ensemble_batch_size = None
         self._ensemble_runs_per_dispatch = None
+        self._surrogate_dtype = None
+        self._surrogate_source = None          # auto (see rule_n)
+        self._surrogate_gen_dist = None        # auto (see rule_n)
         self._rotate_iterations = None
         self._rule_n_iterations = None
         # set when a host multiplier may have put NaN into the fields;
@@ -188,6 +205,16 @@ class MCA:
         self._nan_guard_dirty = False
 
     # ------------------------------------------------------------ ingestion
+    def _set_field_meta(self, data):
+        """Shapes and names of the (time, *space) fields in ``data``; each
+        field is named by its key."""
+        for k, f in data.items():
+            self._shape[k] = f.shape
+            self._n_observations[k] = f.shape[0]
+            self._fields_spatial_shape[k] = f.shape[1:]
+            self._n_variables[k] = int(np.prod(f.shape[1:]))
+            self._field_names[k] = k
+
     def _ingest(self, data):
         """Upload each field once; NaN scans, means and stds run on the
         device and come back as small host vectors."""
@@ -235,18 +262,19 @@ class MCA:
         ``subspace_iters``: power iterations of the truncated solve and of
         each bootstrap run (default 12).
         ``spectrum``: 'fast' (default; the chol/subspace pipeline) or
-        'exact' (dense factorizations) for bootstrap runs; Rule-N runs
-        only 'fast'.
+        'exact' (dense factorizations) for Monte-Carlo runs.
         ``ensemble_tol``: rotation tolerance inside Rule-N and bootstrap
-        runs (default 1e-4).  ``ensemble_subspace_iters``: Rule-N's power
-        iterations (default 6).
+        runs; ``ensemble_subspace_iters``: Rule-N's power iterations.
+        ``surrogate_source`` ('generated' or 'draw'), ``surrogate_gen_dist``
+        ('normal16', 'normal32', 'rademacher', 'rademacher8' or
+        'rademacher1') and ``surrogate_dtype`` (the 'draw' fields' dtype:
+        a torch or numpy dtype or its name) pick Rule-N's surrogates;
+        ``rule_n`` tables what each unset key resolves to.
         ``batch_size``, ``runs_per_dispatch``: accepted and stored, with
         no effect: the port runs one ensemble run at a time, and the
         results do not depend on them in the JAX package either.
-        ``surrogate_source`` and ``surrogate_gen_dist`` take only the
-        configuration the port runs ('generated', 'rademacher8');
-        ``mesh``, another ``ensemble_axis`` and ``surrogate_dtype`` are
-        not ported.  Unported values raise ``NotImplementedError``.
+        ``mesh`` and another ``ensemble_axis`` are not ported and raise
+        ``NotImplementedError``.
         """
         if mesh is not None:
             raise _not_ported('set_solver(mesh=...)')
@@ -254,8 +282,7 @@ class MCA:
             raise _not_ported('set_solver(ensemble_axis={!r})'
                               .format(ensemble_axis))
         if surrogate_dtype is not None:
-            raise _not_ported('set_solver(surrogate_dtype={!r})'
-                              .format(surrogate_dtype))
+            self._surrogate_dtype = _torch_dtype(surrogate_dtype)
         if method is not None:
             if method not in ('gram', 'svd'):
                 raise ValueError("method must be 'gram' or 'svd'")
@@ -278,9 +305,7 @@ class MCA:
             if surrogate_source not in ('draw', 'generated'):
                 raise ValueError(
                     "surrogate_source must be 'draw' or 'generated'")
-            if surrogate_source != 'generated':
-                raise _not_ported('set_solver(surrogate_source={!r})'
-                                  .format(surrogate_source))
+            self._surrogate_source = surrogate_source
         if surrogate_gen_dist is not None:
             if surrogate_gen_dist not in ('normal16', 'normal32',
                                           'rademacher', 'rademacher8',
@@ -289,9 +314,7 @@ class MCA:
                     "surrogate_gen_dist must be 'normal16', "
                     "'normal32', 'rademacher', 'rademacher8' or "
                     "'rademacher1'")
-            if surrogate_gen_dist != 'rademacher8':
-                raise _not_ported('set_solver(surrogate_gen_dist={!r})'
-                                  .format(surrogate_gen_dist))
+            self._surrogate_gen_dist = surrogate_gen_dist
         if ensemble_tol is not None:
             self._ensemble_tol = float(ensemble_tol)
         if runs_per_dispatch is not None:
@@ -1037,37 +1060,94 @@ class MCA:
             self._analysis['is_truncated_at'] = n
 
     # --------------------------------------------------------- significance
-    def rule_n(self, n_runs, n_modes=None, seed=None,
-               disable_progress=False):
-        """Rule N (Overland & Preisendorfer 1982) from generated +-1
-        surrogates; returns an (n_modes, n_kept_runs) array.
-        ``disable_progress`` is accepted for the JAX API; the port shows
-        no progress bar."""
-        if self._ensemble_spectrum != 'fast':
-            raise _not_ported("rule_n with set_solver(spectrum='exact') "
-                              "(the 'draw' surrogate source)")
-        m = self._n_observations
-        n = self._n_variables
-        slc = self._get_slice(n_modes)
-        n_modes_fast = min(slc.stop, min(m.values()), min(n.values()))
-        tol = 1e-4 if self._ensemble_tol is None else self._ensemble_tol
-        polar = 'ns14' if tol >= 1e-4 else 'ns'
-        iters = (6 if self._ensemble_subspace_iters is None
-                 else self._ensemble_subspace_iters)
-        if seed is None:
-            seed = int(np.random.randint(0, 2 ** 31 - 1))
-        H = None
-        if self._analysis['is_complex']:
-            H = self._hilbert_operator(m['left'], torch.float32)
-        spectra, totals, n_iter = _sig.rule_n_generated(
-            m['left'], tuple(n[k] for k in self._keys), n_runs,
+    def _rule_n_config(self, n_modes=None):
+        """The keyword arguments ``rule_n`` passes to
+        ``stats.significance.rule_n_spectra``, every unset key resolved as
+        the table in :meth:`rule_n` says."""
+        m, n = self._n_observations, self._n_variables
+        spectrum = self._ensemble_spectrum
+        source = self._surrogate_source
+        if source is None:
+            source = 'generated' if spectrum == 'fast' else 'draw'
+        generated = source == 'generated'
+        if self._surrogate_dtype is not None:
+            dtype = self._surrogate_dtype
+        elif spectrum == 'fast':
+            dtype = torch.bfloat16
+        else:
+            dtype = self._fields[self._keys[0]].real.dtype
+        n_modes_fast = None
+        if spectrum == 'fast':
+            n_modes_fast = min(self._get_slice(n_modes).stop,
+                               min(m.values()), min(n.values()))
+        tol = self._ensemble_tol
+        if tol is None:
+            tol = 1e-4 if generated else 1e-8
+        iters = self._ensemble_subspace_iters
+        if iters is None:
+            iters = 6 if generated else self._subspace_iters
+        return dict(
             complexify=self._analysis['is_complex'],
             rotated=self._analysis['is_rotated'],
             n_rot=self._analysis['n_rot'],
-            power=max(1, self._analysis['power']), tol=tol, seed=seed,
+            power=max(1, self._analysis['power']), tol=tol,
+            polar_method='ns14' if generated and tol >= 1e-4 else 'ns',
+            dtype=dtype, method=self._solver_method, spectrum=spectrum,
             n_modes_fast=n_modes_fast, subspace_iters=iters,
-            polar_method=polar, device=self._device, H=H,
+            surrogate_source=source,
+            surrogate_dist=self._surrogate_gen_dist or (
+                'rademacher8' if generated else 'normal16'),
         )
+
+    def rule_n(self, n_runs, n_modes=None, seed=None,
+               disable_progress=False):
+        """Rule N (Overland & Preisendorfer 1982): the spectra of
+        ``n_runs`` surrogate noise fields with the model's shapes, solved
+        (and rotated) like the model and rescaled to its total; returns
+        an (n_modes, n_kept_runs) array (runs whose rotation did not
+        converge are dropped).  ``disable_progress`` is accepted for the
+        JAX API; the port shows no progress bar.
+
+        The configuration is the JAX package's on a TPU, on every
+        device.  A key left unset in ``set_solver`` resolves so:
+
+        ==========================  =================  ==================
+        key                         'generated'        'draw'
+        ==========================  =================  ==================
+        ``surrogate_source``        spectrum 'fast'    spectrum 'exact'
+        ``surrogate_gen_dist``      'rademacher8'      (unused)
+        ``ensemble_tol``            1e-4               1e-8
+        polar (not a key)           'ns14' if tol >=   'ns'
+                                    1e-4, else 'ns'
+        ``ensemble_subspace_iters`` 6                  ``subspace_iters``
+        ``surrogate_dtype``         (unused)           bf16 under spectrum
+                                                       'fast', else the
+                                                       fields' real dtype
+        ==========================  =================  ==================
+
+        'generated' runs the fast spectrum only (another raises
+        ``ValueError``): 'rademacher8' and 'rademacher1' (one draw in
+        the port) on the draw and syrk kernels, 'normal16', 'normal32'
+        and 'rademacher' on fields from the field kernel.  'draw' runs
+        Gaussian fields through the fast or the exact spectrum.
+        """
+        cfg = self._rule_n_config(n_modes)
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        H = None
+        if cfg['complexify'] and cfg['spectrum'] == 'fast':
+            # the Hilbert operator feeds the n x n algebra: f32 for
+            # generated and bf16 draws
+            h_dtype = cfg['dtype']
+            if (cfg['surrogate_source'] == 'generated'
+                    or h_dtype.itemsize < 4):
+                h_dtype = torch.float32
+            H = self._hilbert_operator(self._n_observations['left'],
+                                       h_dtype)
+        spectra, totals, n_iter = _sig.rule_n_spectra(
+            self._n_observations['left'],
+            tuple(self._n_variables[k] for k in self._keys), n_runs,
+            seed=seed, device=self._device, H=H, **cfg)
         self._rule_n_iterations = n_iter
         if spectra.shape[0] == 0:
             raise RuntimeError(
@@ -1154,23 +1234,164 @@ class MCA:
             if strategy == 'standard':
                 break
 
-    # -------------------------------------- not ported yet (ROADMAP queue 1)
-    def summary(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise _not_ported('summary')
+    # ----------------------------------------------------------- save/load
+    def _get_analysis_path(self, path=None):
+        if path is None:
+            name_folder = secure_str('_'.join(self._field_names.values()))
+            path = os.path.join(os.getcwd(), 'xmca', name_folder)
+        elif not os.path.isabs(path):
+            path = os.path.abspath(path)
+        return path
 
-    def save_analysis(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise _not_ported('save_analysis')
+    def _create_analysis_path(self, path):
+        path = self._get_analysis_path(path)
+        if not os.path.exists(path):
+            os.makedirs(path)
 
-    def load_analysis(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise _not_ported('load_analysis')
+    def _create_info_file(self, path):
+        """Write the human-readable ``info.xmca`` manifest, line for line
+        the JAX package's (and the original xmca's) layout."""
+        sep_line = '\n#' + '-' * 79
+        now = datetime.now().strftime("%Y-%m-%d %H:%M:%S")
+        file_header = (
+            'This file contains information neccessary to load stored '
+            'analysisdata from xmca module.'
+        )
+        with open(os.path.join(path, 'info.xmca'), 'w+') as file:
+            file.write(wrap_str(file_header))
+            file.write('\n# To load this analysis use:')
+            file.write('\n# from xmca.xarray import xMCA')
+            file.write('\n# mca = xMCA()')
+            file.write('\n# mca.load_analysis(PATH_TO_THIS_FILE)')
+            file.write('\n')
+            file.write(sep_line)
+            file.write(sep_line)
+            file.write('\n{:<20} : {:<57}'.format('created', now))
+            file.write(sep_line)
+            for key, name in self._field_names.items():
+                file.write('\n{:<20} : {:<57}'.format(key, str(name)))
+            file.write(sep_line)
+            for key, info in self._analysis.items():
+                if key in ['is_bivariate', 'is_complex', 'is_rotated',
+                           'is_truncated']:
+                    file.write(sep_line)
+                file.write('\n{:<20} : {:<57}'.format(key, str(info)))
 
-    def plot(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise _not_ported('plot')
+    def _get_file_names(self, format):
+        fields = {}
+        eofs = {}
+        for key, variable in self._field_names.items():
+            variable = secure_str(variable)
+            fields[key] = '.'.join([variable, format])
+            eofs[key] = '.'.join(['_'.join([variable, 'eofs']), format])
+        return {
+            'fields': fields,
+            'eofs': eofs,
+            'pcs': {},
+            'singular': '.'.join(['singular_values', format]),
+            'norm': {},
+        }
 
-    def save_plot(self, *args, **kwargs):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise _not_ported('save_plot')
+    def _save_data(self, data_array, path, *args, **kwargs):
+        raise NotImplementedError('only works for `xarray`')
+
+    def _set_analysis(self, key, value):
+        """Set ``_analysis[key]`` from its text in ``info.xmca``, cast by
+        the type of the fresh model's value: a bool is ``value ==
+        'True'``, so an ``extend`` of 'exp' or 'theta' loads as False
+        (the JAX package does the same)."""
+        try:
+            key_type = type(self._analysis[key])
+        except KeyError:
+            raise KeyError("Key `{}` not found in info file.".format(key))
+        if key_type == bool:
+            self._analysis[key] = (value == 'True')
+        else:
+            self._analysis[key] = key_type(value)
+
+    def _set_info_from_file(self, path):
+        with open(path, 'r') as info_file:
+            for line in info_file.readlines():
+                if line[0] != '#':
+                    key = line.split(':')[0].rstrip()
+                    if key in ['left', 'right']:
+                        self._field_names[key] = line.split(':')[1].strip()
+                    if key in self._analysis.keys():
+                        self._set_analysis(key, line.split(':')[1].strip())
+
+    def load_analysis(self, path, fields=None, eofs=None,
+                      singular_values=None):
+        """Rebuild a model saved with ``save_analysis`` from its
+        ``info.xmca`` at ``path`` and the saved arrays: ``fields`` (the
+        original-scale fields, time first), ``eofs`` (the unrotated EOF
+        grids, modes last) and ``singular_values``, numpy, keyed by
+        'left'/'right'.
+
+        As in the JAX package, normalization, complexification and the
+        rotation are recomputed from them: the fields go to the device
+        once, are centered and normalized there and complexified at once
+        (never deferred), the EOFs become the singular vectors on the
+        device, and a rotated analysis is rotated again.  The truncated
+        solve's extra state is not restored.
+        """
+        self._set_info_from_file(path)
+        self._keys = (['left', 'right'] if self._analysis['is_bivariate']
+                      else ['left'])
+        self._complexify_pending = False
+        self._hilbert = None
+        data = {k: np.asarray(fields[k]) for k in self._keys}
+        # the names read above give way to the keys, as in the JAX package
+        # (its field metadata is set after the info file)
+        self._set_field_meta(data)
+        self._fields = self._ingest(data)
+        if self._analysis['is_normalized']:
+            self.normalize()
+        if self._analysis['is_complex']:
+            for k in self._keys:
+                self._fields[k] = _pre.complexify(
+                    self._fields[k], extend=self._analysis['extend'],
+                    period=self._analysis['theta_period'])
+
+        svals = np.asarray(singular_values)
+        self._singular_values = svals
+        self._variance = svals
+        self._var_idx = np.argsort(svals)[::-1]
+        self._norm = {}
+        self._V = {}
+        for k in self._keys:
+            self._norm[k] = np.sqrt(svals)
+            eofs_2d = np.asarray(eofs[k]).reshape(self._n_variables[k], -1)
+            keep = ~np.isnan(eofs_2d).any(axis=1)
+            self._V[k] = torch.as_tensor(
+                np.ascontiguousarray(eofs_2d[keep]), device=self._device)
+        n = len(svals)
+        self._rotation_matrix = np.eye(n)
+        self._correlation_matrix = np.eye(n)
+        if self._analysis['is_rotated']:
+            self.rotate(self._analysis['n_rot'], self._analysis['power'])
+
+    # -------------------------------------------------------------- display
+    def summary(self):
+        """Print meta information of the performed analysis (YAML)."""
+        import yaml
+        strings_only = {k: str(v) for k, v in self._analysis.items()}
+        print(yaml.dump(strings_only, sort_keys=False,
+                        default_flow_style=False))
+
+    def plot(self, mode, threshold=0, phase_shift=0, cmap_eof=None,
+             cmap_phase=None, figsize=(8.3, 5.0)):
+        """Plot PCs/EOFs (and phase, if complex) of `mode` (matplotlib)."""
+        from xmca_tpu_torch.viz.plot import plot_mca_mode
+        return plot_mca_mode(
+            self, mode, threshold=threshold, phase_shift=phase_shift,
+            cmap_eof=cmap_eof, cmap_phase=cmap_phase, figsize=figsize,
+        )
+
+    def save_plot(self, mode, path=None, plot_kwargs={}, save_kwargs={}):
+        """Create and save a plot of `mode` to disk."""
+        import matplotlib.pyplot as plt
+        output = 'mode{:}.png'.format(mode) if path is None else path
+        self.plot(mode=mode, **plot_kwargs)
+        fig = plt.gcf()
+        fig.subplots_adjust(left=0.06)
+        plt.savefig(output, **save_kwargs)

@@ -3,13 +3,20 @@
 Counterpart of ``xmca_tpu/api/xarray.py``: the constructor captures
 dims/coords, ``apply_coslat`` weights by sqrt(cos(latitude)), and every
 result comes back as a DataArray with a 1-based ``mode`` coordinate (and
-the field's own ``time``/``lat``/``lon`` coordinates).  Works with real
-xarray when installed, else with :mod:`xmca_tpu_torch.compat.xarray_lite`.
+the field's own ``time``/``lat``/``lon`` coordinates).  ``save_analysis``
+writes the JAX package's on-disk format (``info.xmca`` plus netCDF files)
+and ``load_analysis`` reads it, whichever package wrote it; ``plot`` draws
+maps (cartopy when it is importable).  Works with real xarray when
+installed, else with :mod:`xmca_tpu_torch.compat.xarray_lite`.
 """
-import numpy as np
+import os
 
-from xmca_tpu_torch.compat import xr
-from xmca_tpu_torch.api.array import MCA, _host_to, _not_ported
+import numpy as np
+import torch
+
+from xmca_tpu_torch.compat import xr, open_dataarray
+from xmca_tpu_torch.api.array import MCA, _host_to
+from xmca_tpu_torch.utils.text import secure_str
 
 # the labeled array type xMCA takes: xarray's when it is installed, else
 # the built-in lite version with the same subset API
@@ -97,16 +104,41 @@ class xMCA(MCA):
             return None
         return w.reshape(-1)[self._no_nan_index[k]]
 
+    def _apply_weights_host(self, k, weight):
+        """Weights that are not a per-column spatial vector (time-varying,
+        or a full (time, lat, lon) grid): the field is copied to the host,
+        multiplied there, re-packed and uploaded again in its own dtype
+        (the JAX package's semantics)."""
+        field = self.fields()[k]
+        new_field = np.asarray((field * weight).data)
+        try:
+            new_field = new_field.reshape(
+                self._n_observations[k], self._n_variables[k])
+            new_field = new_field[:, self._no_nan_index[k]]
+        except ValueError as err:
+            raise ValueError(
+                'Error for {:} weights. Mismatch between dimensions '
+                'of weights ({:}) and original field ({:}).'
+                .format(k, np.shape(weight), field.shape)
+            ) from err
+        dtype = self._fields[k].dtype
+        self._fields[k] = torch.as_tensor(
+            np.ascontiguousarray(new_field), device=self._device).to(dtype)
+
     def apply_weights(self, **weights):
-        """Multiply fields by spatial (dim-broadcast) DataArray weights."""
+        """Multiply fields by (dim-broadcast) DataArray weights: spatial
+        weights as a per-column multiply on the device, any other weight
+        through :meth:`_apply_weights_host`."""
         for k, weight in weights.items():
             if k not in self._fields:
                 raise KeyError('Key `{:}` not found. Please use `left` or '
                                '`right`'.format(k))
             cols = self._weight_columns(k, weight)
             if cols is None:
-                raise _not_ported('non-spatial (time-varying) weights')
-            MCA.apply_weights(self, **{k: cols})
+                self._nan_guard_dirty = True
+                self._apply_weights_host(k, weight)
+            else:
+                MCA.apply_weights(self, **{k: cols})
 
     def apply_coslat(self):
         """Apply sqrt(cos(latitude)) area weighting."""
@@ -316,3 +348,89 @@ class xMCA(MCA):
             on_right=on_right, block_size=block_size, replace=replace,
             strategy=strategy, disable_progress=disable_progress,
             seed=seed), n_modes, attrs=self._attrs())
+
+    # ------------------------------------------------------------ save/load
+    def _save_data(self, data, path, engine='h5netcdf', *args, **kwargs):
+        file_name = secure_str('.'.join([data.name, 'nc']))
+        output_path = os.path.join(path, file_name)
+        try:
+            data.to_netcdf(path=output_path, engine=engine,
+                           invalid_netcdf=engine == 'h5netcdf', *args,
+                           **kwargs)
+        except (ImportError, ValueError):
+            # no h5netcdf/netcdf4 backend: the built-in h5py writer
+            from xmca_tpu_torch.compat.xarray_lite import DataArray as LiteDA
+            LiteDA(
+                np.asarray(data.values), dims=data.dims,
+                coords={d: np.asarray(data.coords[d].values)
+                        for d in data.dims if d in data.coords},
+                name=data.name, attrs=dict(data.attrs),
+            ).to_netcdf(output_path)
+
+    def save_analysis(self, path=None, engine='h5netcdf'):
+        """Save the analysis: the ``info.xmca`` manifest, the singular
+        values, each field's unrotated EOFs and its original-scale fields
+        (real part), as netCDF files in the JAX package's layout."""
+        analysis_path = self._get_analysis_path(path)
+        self._create_analysis_path(analysis_path)
+        self._create_info_file(analysis_path)
+        fields = self.fields(original_scale=True)
+        eofs = self.eofs(rotated=False)
+        self._save_data(self.singular_values(), analysis_path, engine)
+        for key in self._keys:
+            self._save_data(eofs[key], analysis_path, engine)
+            # the complex parts are recomputed on load
+            self._save_data(fields[key].real, analysis_path, engine)
+
+    def load_analysis(self, path, engine='h5netcdf'):
+        """Load an analysis saved by ``save_analysis`` (of this package
+        or of the JAX package: the same files) from its ``info.xmca`` at
+        ``path``; the coslat weights are applied again after the array
+        load, in the JAX package's order."""
+        self._set_info_from_file(path)
+        path_folder, _ = os.path.split(path)
+        file_names = self._get_file_names(format='nc')
+        singular_values = np.asarray(open_dataarray(
+            os.path.join(path_folder, file_names['singular']),
+            engine=engine).data)
+        keys = (['left', 'right'] if self._analysis['is_bivariate']
+                else ['left'])
+        fields, eofs = {}, {}
+        self._field_coords = {}
+        self._field_dims = {}
+        for key in keys:
+            eofs[key] = np.asarray(open_dataarray(
+                os.path.join(path_folder, file_names['eofs'][key]),
+                engine=engine).data)
+            da = open_dataarray(
+                os.path.join(path_folder, file_names['fields'][key]),
+                engine=engine)
+            self._field_coords[key] = da.coords
+            self._field_dims[key] = da.dims
+            fields[key] = np.asarray(da.data)
+        super().load_analysis(path=path, fields=fields, eofs=eofs,
+                              singular_values=singular_values)
+        if self._analysis['is_coslat_corrected']:
+            self.apply_coslat()
+
+    # -------------------------------------------------------------- display
+    def plot(self, mode, threshold=0, phase_shift=0, cmap_eof=None,
+             cmap_phase=None, figsize=(8.3, 5.0), resolution='110m',
+             projection=None, orientation='horizontal', land=True):
+        """Map plot of `mode` (cartopy when available); returns
+        ``(fig, axes)``."""
+        from xmca_tpu_torch.viz.plot import plot_xmca_mode
+        return plot_xmca_mode(
+            self, mode, threshold=threshold, phase_shift=phase_shift,
+            cmap_eof=cmap_eof, cmap_phase=cmap_phase, figsize=figsize,
+            resolution=resolution, projection=projection,
+            orientation=orientation, land=land,
+        )
+
+    def save_plot(self, mode, path=None, plot_kwargs={}, save_kwargs={}):
+        """Create and save a plot of `mode` to disk."""
+        import matplotlib.pyplot as plt
+        output = 'mode{:}.png'.format(mode) if path is None else path
+        fig, axes = self.plot(mode=mode, **plot_kwargs)
+        fig.subplots_adjust(left=0.06)
+        plt.savefig(output, **save_kwargs)

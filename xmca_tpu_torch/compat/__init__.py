@@ -11,3 +11,20 @@ try:
 except ImportError:  # pragma: no cover - depends on environment
     from xmca_tpu_torch.compat import xarray_lite as xr  # noqa: F401
     HAS_XARRAY = False
+
+
+def open_dataarray(path, engine=None, **kwargs):
+    """Open a single-variable netCDF file with whatever backend is available.
+
+    Prefers real xarray (netcdf4/h5netcdf engines); falls back to the
+    port's h5py-based reader, which reads the netCDF4/HDF5 layout that
+    ``save_analysis`` writes, complex data in h5netcdf's
+    ``invalid_netcdf`` mode included.
+    """
+    if HAS_XARRAY:
+        try:
+            return xr.open_dataarray(path, engine=engine, **kwargs)
+        except (ValueError, ImportError, OSError):
+            pass
+    from xmca_tpu_torch.compat import xarray_lite
+    return xarray_lite.open_dataarray(path)

@@ -8,16 +8,16 @@ need while xarray is not installed:
 * dimension-aligned broadcasting for arithmetic and numpy ufuncs
   (``field * weight`` where ``weight`` has dims ``('lat',)``),
 * reductions over named dims, ``isel`` (positional), ``sel``
-  (label-based, inclusive slices), numpy-style ``[]`` indexing, ``where``.
+  (label-based, inclusive slices), numpy-style ``[]`` indexing, ``where``,
+* netCDF round trips via :mod:`xmca_tpu_torch.compat.netcdf` (h5py),
+* ``sortby`` / ``assign_coords`` used by ``tools.xarray``.
 
-netCDF I/O and the plotting helpers wait for the port's save/load and
-plotting.  If real xarray is installed, :mod:`xmca_tpu_torch.compat`
-prefers it; this module is the fallback, NOT a general xarray
-replacement.
+If real xarray is installed, :mod:`xmca_tpu_torch.compat` prefers it;
+this module is the fallback, NOT a general xarray replacement.
 """
 import numpy as np
 
-__all__ = ['DataArray']
+__all__ = ['DataArray', 'open_dataarray']
 
 
 class Coordinates(dict):
@@ -346,6 +346,37 @@ class DataArray:
         cond_v = cond.values if isinstance(cond, DataArray) else cond
         return self._with_values(np.where(cond_v, self.values, other))
 
+    def sortby(self, dim):
+        if isinstance(dim, DataArray):
+            dim = dim.name if dim.name is not None else dim.dims[0]
+        order = np.argsort(self.coords[dim].values, kind='stable')
+        key = tuple(order if d == dim else slice(None) for d in self.dims)
+        return self[key]
+
+    def assign_coords(self, coords=None, **kwargs):
+        coords = dict(coords or {}, **kwargs)
+        new = self.copy()
+        for cname, cval in coords.items():
+            vals, cattrs = _coord_values(cval)
+            new.coords[cname] = DataArray(vals, dims=(cname,), name=cname,
+                                          attrs=cattrs)
+        return new
+
+    # --------------------------------------------------------------- output
+    def to_netcdf(self, path, engine=None, invalid_netcdf=None,
+                  *args, **kwargs):
+        from xmca_tpu_torch.compat import netcdf
+        coords = {
+            d: (self.coords[d].values, self.coords[d].attrs)
+            for d in self.dims if d in self.coords
+        }
+        attrs = {k: str(v) for k, v in self.attrs.items()}
+        netcdf.write_dataarray(
+            path, self.name or 'data', self.values, self.dims,
+            coords=coords, attrs=attrs,
+        )
+
+
 
 def _align(a, b):
     """Broadcast two DataArrays by dimension name (xarray-style).
@@ -376,3 +407,12 @@ def _expand(da, dims):
             shape[i] = src.shape[j]
             j += 1
     return src.reshape(shape)
+
+
+def open_dataarray(path, engine=None, **kwargs):
+    """Open a single-variable netCDF file as a (lite) DataArray."""
+    from xmca_tpu_torch.compat import netcdf
+    raw = netcdf.read_dataarray(path)
+    coords = {k: (v[0], v[1]) for k, v in raw['coords'].items()}
+    return DataArray(raw['values'], dims=raw['dims'], coords=coords,
+                     name=raw['name'], attrs=raw['attrs'])

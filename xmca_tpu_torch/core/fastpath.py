@@ -10,9 +10,13 @@ from a Newton-Schulz nuclear norm, and the spatial vectors from
 its Gram is folded from the real one (:func:`_analytic_fold`).
 
 Precision: every n x n product runs at the operands' own precision (f32
-on the card with TF32 off, f64 in the CPU tests).  The JAX package's
-3-pass ``HIGH`` tier (``_dot_high``) and ``grade='fast'``'s single-pass
-bf16 n x n dot both become f32 here, which is more accurate; the
+on the card with TF32 off, f64 in the CPU tests).  bf16 fields (Rule-N's
+Gaussian and generated surrogates) enter the data-sized products upcast
+to f32 (:func:`_data_dot`), so they accumulate in f32 as the JAX
+package's ``_data_dot`` does; their Grams take the jitter floor of bf16
+input.  The JAX package's 3-pass ``HIGH`` tier (``_dot_high``) and
+``grade='fast'``'s single-pass bf16 n x n dot both become f32 here, which
+is more accurate; the
 +-1 surrogate back-projection ``X^T S`` runs in f32 as well (a +-1 field
 is exact in f32, and the product is ~1e-2 of the Gram's work).  The
 generated surrogate's kernels round ``S`` to bf16 and sum in f32, as the
@@ -42,6 +46,16 @@ def _complex_dtype(real_dtype):
 
 def _eps(dtype):
     return float(torch.finfo(_real_dtype(dtype)).eps)
+
+
+def _data_dot(a, b):
+    """``a @ b`` over the data axis; bf16 operands are upcast to f32
+    (exact), so the product accumulates and returns f32."""
+    if a.dtype == torch.bfloat16:
+        a = a.to(torch.float32)
+    if b.dtype == torch.bfloat16:
+        b = b.to(torch.float32)
+    return a @ b
 
 
 def _jitter(G, p, jitter_rel, input_eps=None):
@@ -107,8 +121,9 @@ def _analytic_fold(G, H):
 
 
 def analytic_temporal_gram(X, H, jitter_rel=1e-6):
-    """Jittered temporal Gram of ``analytic(X)`` from real ``X``."""
-    G = X @ X.T
+    """Jittered temporal Gram of ``analytic(X)`` from real ``X`` (f32 from
+    a bf16 ``X``)."""
+    G = _data_dot(X, X.T)
     GZ = _analytic_fold(G, H)
     return _jitter(GZ, X.shape[1], jitter_rel, input_eps=_eps(X.dtype))
 
@@ -122,8 +137,8 @@ def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
 
 
 def temporal_gram(X, jitter_rel=1e-6):
-    """Jittered temporal Gram ``X X^H + eps I``."""
-    G = X @ X.mH
+    """Jittered temporal Gram ``X X^H + eps I`` (f32 from a bf16 ``X``)."""
+    G = _data_dot(X, X.mH)
     return _jitter(G, X.shape[1], jitter_rel, input_eps=_eps(X.dtype))
 
 
@@ -233,7 +248,8 @@ def combine_analytic_projection(P):
 
 def _analytic_spatial_vectors(X, H, T):
     """``V = Z^H T`` for ``Z = (I + iH) X`` without materializing Z."""
-    return combine_analytic_projection(X.T @ analytic_projection_stack(T, H))
+    return combine_analytic_projection(
+        _data_dot(X.T, analytic_projection_stack(T, H)))
 
 
 def fast_solve_truncated_totals(Xl, Xr, omega, n_modes, n_iter=8,
@@ -334,10 +350,12 @@ def fast_rotated_variance(Xl, Xr, omega, n_rot, power=1, tol=1e-8, n_iter=8,
         Xr = Xl
     M, La, Lb = reduced_kernel(Xl, Xr, jitter_rel)
     U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
-    Vl = Xl.mH @ torch.linalg.solve_triangular(La.mH, U, upper=True)
+    Vl = _data_dot(Xl.mH, torch.linalg.solve_triangular(La.mH, U,
+                                                        upper=True))
     Vr = None
     if bivariate:
-        Vr = Xr.mH @ torch.linalg.solve_triangular(Lb.mH, V, upper=True)
+        Vr = _data_dot(Xr.mH, torch.linalg.solve_triangular(Lb.mH, V,
+                                                            upper=True))
     var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
     return var, conv
 
@@ -456,6 +474,83 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
                             device=device)
         S_pad[:n_obs] = S
         return (S_pad.T @ X.to(torch.float32)).T[:n_vars[i]]
+
+    return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
+                               complexify, rotated, omega, n_rot, power,
+                               tol, n_iter, polar_method)
+
+
+def _int8_gram(X):
+    """Exact int32 Gram ``X X^T`` of an (n, p) int8 field with
+    ``torch._int_mm``; the field is zero-padded to the shapes the card's
+    int8 product takes (rows a multiple of 8 and above 16, columns a
+    multiple of 8), which leaves the (n, n) block unchanged."""
+    n, p = X.shape
+    n_p, p_p = max(-(-n // 8) * 8, 24), -(-p // 8) * 8
+    if (n_p, p_p) != (n, p):
+        Xp = X.new_zeros((n_p, p_p))
+        Xp[:n, :p] = X
+        X = Xp
+    X = X.contiguous()
+    return torch._int_mm(X, X.T)[:n, :n]
+
+
+def _int8_centered_gram(X):
+    """Exactly-centered temporal Gram of a +-1 int8 field ``X (n, p)``.
+
+    The raw Gram is one int8 x int8 -> int32 product (exact;
+    :func:`_int8_gram`), the column means come from exact int32 sums,
+    and centering is the rank-1 identity ``Gc = G - w 1^T - 1 w^T +
+    mu.mu`` with ``w = X mu`` in f32.  Returns ``(Gc f32, mu f32, X as
+    f32)``, the last for the back-projection (+-1 is exact in f32).
+    """
+    n = X.shape[0]
+    G = _int8_gram(X).to(torch.float32)
+    mu = X.sum(dim=0, dtype=torch.int32).to(torch.float32) / n
+    Xf = X.to(torch.float32)
+    w = Xf @ mu
+    Gc = G - w[:, None] - w[None, :] + torch.sum(mu * mu)
+    return Gc, mu, Xf
+
+
+def fast_surrogate_variance_int8(seed, omega, n_obs, n_vars, H=None,
+                                 complexify=False, rotated=False, n_rot=10,
+                                 power=1, tol=1e-8, n_iter=8,
+                                 jitter_rel=1e-6, polar_method='ns'):
+    """One Rule-N surrogate solve from +-1 int8 fields with a full Gram
+    (the JAX package's ``fast_surrogate_variance_int8``, its pipeline for
+    'rademacher8'/'rademacher1' draws off the TPU).
+
+    The fields are :func:`fast_surrogate_variance_tri`'s (the draw
+    kernel, seed ``2 * seed + i`` mod 2^32), so at the same seed the two
+    differ only in how the Gram is formed: here the whole ``X X^T`` by
+    ``torch._int_mm`` and centering from ``X mu``
+    (:func:`_int8_centered_gram`), there the lower triangle by the syrk
+    kernel and centering from the Gram itself.  No public path runs this
+    variant: the port runs the JAX package's accelerator configuration,
+    which is the triangle Gram, on every device.
+
+    Returns ``(variance, total, converged, n_iter_rot)`` as
+    :func:`fast_surrogate_variance_tri` does.
+    """
+    from xmca_tpu_torch.ops.surrogate import sign_field_sums
+    from xmca_tpu_torch.ops.syrk import pad_to
+
+    device = omega.device
+    if complexify:
+        H = H.to(device=device, dtype=torch.float32)
+    grams, mus, Xs = [], [], []
+    for i, p in enumerate(n_vars):
+        n_pad, p_pad = pad_to(n_obs, p)
+        X, _ = sign_field_sums((2 * int(seed) + i) & 0xFFFFFFFF, n_obs, p,
+                               n_pad, p_pad, device)
+        Gc, mu, Xf = _int8_centered_gram(X[:n_obs, :p])
+        grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
+        mus.append(mu)
+        Xs.append(Xf)
+
+    def project(i, S):
+        return Xs[i].T @ S
 
     return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
                                complexify, rotated, omega, n_rot, power,

@@ -194,7 +194,9 @@ def bits_to_draw(words, dist):
     package's ``_bits_to_draw``: bf16 for ``normal32`` (standardized
     Binomial(32, 1/2), computed in f32 and rounded to nearest even),
     ``normal16`` (Binomial(16, 1/2) of the low half-word) and
-    ``rademacher`` (bit 0: 1 -> +1, 0 -> -1); int8 for ``rademacher8``."""
+    ``rademacher`` (bit 0: 1 -> +1, 0 -> -1); int8 for ``rademacher8``.
+    'rademacher1' is no word map here, as in the JAX package: Rule-N
+    draws it with the +-1 draw kernel, one random bit an element."""
     w = words.to(torch.int64) & _MASK32
     if dist == 'rademacher':
         return torch.where((w & 1) == 1, 1.0, -1.0).to(torch.bfloat16)
@@ -228,8 +230,11 @@ def _gen_device(device, name):
 
 def surrogate_field(seed, n, p, dist, device):
     """The generated (n, p) field of ``seed`` (taken modulo 2^32): bf16,
-    or int8 for ``rademacher8``.  The oracle of :func:`surrogate_gram`
-    and :func:`surrogate_project`, which regenerate the same values."""
+    or int8 for ``rademacher8``.  Rule-N's 'normal16', 'normal32' and
+    'rademacher' runs solve these fields
+    (``stats.significance.rule_n_generated``), and it is the oracle of
+    :func:`surrogate_gram` and :func:`surrogate_project`, which
+    regenerate the same values."""
     device = _gen_device(device, 'surrogate_field')
     _check_gen(n, p, dist)
     if device.type == 'cpu':

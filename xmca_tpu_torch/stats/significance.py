@@ -2,12 +2,23 @@
 
 Counterpart of ``xmca_tpu/stats/significance.py``.
 
-Rule-N runs the generated-surrogate path: each run draws its +-1 fields
-with the draw kernel, forms their Grams with the syrk kernel and solves /
-rotates them (``core.fastpath.fast_surrogate_variance_tri``).  Runs go
-one after another on one device, with the JAX package's seed plumbing:
-run ``r`` of seed ``s`` uses ``(s * 2654435761 + r) mod 2^32``, and its
-fields the seeds ``2 s_r`` and ``2 s_r + 1``.
+Rule-N (:func:`rule_n_spectra`) runs one of two surrogate sources, one
+run after another on one device, with the JAX package's seed plumbing:
+run ``r`` of seed ``s`` uses ``s_r = (s * 2654435761 + r) mod 2^32``.
+Its subspace start block comes from a CPU ``torch.Generator`` seeded
+with ``s_r``, so a generated run on the card and on the CPU solves the
+same inputs.
+
+* ``'generated'`` (:func:`rule_n_generated`): +-1 draws
+  ('rademacher8', 'rademacher1') come from the draw kernel with seeds
+  ``2 s_r`` and ``2 s_r + 1``, their Grams from the syrk kernel
+  (``core.fastpath.fast_surrogate_variance_tri``); 'normal16',
+  'normal32' and 'rademacher' fields are materialized by the field
+  kernel with the same seeds and solved by :func:`_surrogate_variance`
+  with the fast spectrum.
+* ``'draw'``: Gaussian fields from a ``torch.Generator`` on the device
+  seeded with ``s_r ^ DRAW_SALT`` (the model's dtype, or bf16), solved
+  by :func:`_surrogate_variance` with the fast or the exact spectrum.
 
 Bootstrapping resamples the model's own (centered, preprocessed) fields
 in moving blocks and solves each resample with :func:`_surrogate_variance`
@@ -24,8 +35,17 @@ from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core.preprocess import complexify as _complexify
 from xmca_tpu_torch.core.solver import solve_rotated_variance, solve_svals
 
-__all__ = ['run_seeds', 'rule_n_generated', 'rule_north_uncertainty',
-           'bootstrap_spectra']
+__all__ = ['run_seeds', 'rule_n_spectra', 'rule_n_generated',
+           'rule_north_uncertainty', 'bootstrap_spectra']
+
+# salts the 'draw' fields' generator seed: their stream stays apart from
+# the start block's, drawn from the run seed itself
+DRAW_SALT = 0x44524157           # 'DRAW'
+# generated distributions drawn as +-1 int8 and solved with the triangle
+# Gram; the draw kernel spends one random bit per element, so in the port
+# 'rademacher1' is the same draw as 'rademacher8' (the JAX package's two
+# differ only in their random-bit budget)
+_PM1_INT8 = ('rademacher8', 'rademacher1')
 
 
 def run_seeds(seed, n_runs):
@@ -34,37 +54,131 @@ def run_seeds(seed, n_runs):
     return [(base + r) % (2 ** 32) for r in range(n_runs)]
 
 
-def rule_n_generated(n_obs, n_vars, n_runs, *, complexify, rotated, n_rot,
-                     power, tol, seed, n_modes_fast, subspace_iters,
-                     polar_method, device, H=None, grade='fast'):
-    """Rule-N surrogate spectra from generated +-1 fields.
+def _start_block(s, k, n_obs, complexify, device):
+    """Run ``s``'s subspace start block, drawn on the CPU from a generator
+    seeded with ``s`` and copied to ``device``."""
+    gen = torch.Generator().manual_seed(s)
+    return _fast.start_block(
+        n_obs, k, torch.complex64 if complexify else torch.float32,
+        gen).to(device)
+
+
+def _collect(runs):
+    """``(spectra, totals, n_iter)`` as numpy from per-run ``(variance,
+    total, converged, n_iter)``: the runs that did not converge are
+    dropped from the first two; ``n_iter`` holds every run's rotation
+    iteration count, or is None where the solve does not report it."""
+    runs = list(runs)
+    keep = np.asarray([bool(r[2]) for r in runs], dtype=bool)
+    spectra = torch.stack([r[0] for r in runs]).cpu().numpy()
+    totals = torch.stack([torch.as_tensor(r[1]) for r in runs]).cpu().numpy()
+    iters = [r[3] for r in runs]
+    iters = None if any(i is None for i in iters) else np.asarray(iters)
+    return spectra[keep], totals[keep], iters
+
+
+def rule_n_spectra(n_obs, n_vars, n_runs, *, complexify=False,
+                   rotated=False, n_rot=0, power=1, tol=1e-8,
+                   dtype=torch.float32, method='gram', seed=None,
+                   spectrum='fast', n_modes_fast=None, subspace_iters=12,
+                   surrogate_source='generated',
+                   surrogate_dist='rademacher8', polar_method='ns',
+                   device='cpu', H=None, grade='fast'):
+    """Rule-N surrogate spectra (Overland & Preisendorfer 1982) of
+    ``n_runs`` pairs of (n_obs, p_i) surrogate fields, with the keys of
+    the JAX package's ``rule_n_spectra``.
+
+    ``surrogate_source='generated'`` runs :func:`rule_n_generated` (the
+    fast spectrum only: another raises the JAX package's ``ValueError``);
+    ``'draw'`` draws each run's Gaussian fields in ``dtype`` from a
+    ``torch.Generator`` on ``device`` seeded with the run seed xor
+    ``DRAW_SALT`` and solves them with :func:`_surrogate_variance` and
+    ``spectrum`` ('fast' or 'exact'; the fast one from the run's start
+    block).
+    ``H`` is the Hilbert operator of the fast complexified spectrum.
 
     Returns ``(spectra, totals, n_iter)`` as numpy: spectra
-    (n_kept_runs, n_modes) with non-converged runs dropped, the per-run
-    rescaling totals, and every run's rotation iteration count (kept or
-    not).  Each run's subspace start block comes from a
-    ``torch.Generator`` seeded with the run seed.
+    (n_kept_runs, n_modes), non-converged runs dropped; the per-run
+    rescaling totals; every run's rotation iteration count, or None
+    where the solve does not report one.
     """
+    if seed is None:
+        seed = int(np.random.randint(0, 2 ** 31 - 1))
+    n_vars = tuple(int(p) for p in n_vars)
+    if surrogate_source == 'generated':
+        if spectrum != 'fast':
+            raise ValueError(
+                "surrogate_source='generated' requires "
+                "spectrum='fast' (set_solver(spectrum='fast'))"
+            )
+        return rule_n_generated(
+            n_obs, n_vars, n_runs, complexify=complexify, rotated=rotated,
+            n_rot=n_rot, power=power, tol=tol, seed=seed,
+            n_modes_fast=n_modes_fast, subspace_iters=subspace_iters,
+            polar_method=polar_method, device=device, H=H, grade=grade,
+            dist=surrogate_dist)
+    if surrogate_source != 'draw':
+        raise ValueError("surrogate_source must be 'draw' or 'generated'")
+    k = n_rot if rotated else n_modes_fast
+
+    def one_run(s):
+        gen = torch.Generator(device=device).manual_seed(s ^ DRAW_SALT)
+        fields = [torch.randn((n_obs, p), generator=gen, dtype=dtype,
+                              device=device) for p in n_vars]
+        omega = None
+        if spectrum == 'fast':
+            omega = _start_block(s, k, n_obs, complexify, device)
+        var, total, conv = _surrogate_variance(
+            fields, complexify, rotated, n_rot, power, tol, method,
+            spectrum=spectrum, n_modes_fast=n_modes_fast,
+            subspace_iters=subspace_iters, omega=omega, hilbert_H=H,
+            polar_method=polar_method)
+        return var, total, conv, None
+
+    return _collect(one_run(s) for s in run_seeds(seed, n_runs))
+
+
+def rule_n_generated(n_obs, n_vars, n_runs, *, complexify, rotated, n_rot,
+                     power, tol, seed, n_modes_fast, subspace_iters,
+                     polar_method, device, H=None, grade='fast',
+                     dist='rademacher8'):
+    """Rule-N surrogate spectra from generated fields of distribution
+    ``dist``.
+
+    'rademacher8' and 'rademacher1' (the same +-1 draw here) run
+    ``core.fastpath.fast_surrogate_variance_tri`` (the draw and syrk
+    kernels, ``grade``); 'normal16', 'normal32' and 'rademacher'
+    materialize each (n_obs, p_i) bf16 field with the field kernel
+    (``ops.surrogate.surrogate_field``, seed ``2 s_r + i`` mod 2^32) and
+    solve it with :func:`_surrogate_variance` and the fast spectrum.
+    Returns ``(spectra, totals,
+    n_iter)`` as :func:`rule_n_spectra` does.
+    """
+    from xmca_tpu_torch.ops.surrogate import GEN_DISTS, surrogate_field
+
+    if dist not in _PM1_INT8 and dist not in GEN_DISTS:
+        raise ValueError('unknown surrogate distribution: {!r}'.format(dist))
     n_vars = tuple(int(p) for p in n_vars)
     k = n_rot if rotated else n_modes_fast
-    spectra, totals, keep, iters = [], [], [], []
-    for s in run_seeds(seed, n_runs):
-        gen = torch.Generator(device=device).manual_seed(s)
-        omega = _fast.start_block(
-            n_obs, k, torch.complex64 if complexify else torch.float32, gen)
-        var, total, conv, n_it = _fast.fast_surrogate_variance_tri(
-            s, omega, n_obs, n_vars, H=H, complexify=complexify,
-            rotated=rotated, n_rot=k, power=power, tol=tol,
-            n_iter=subspace_iters, polar_method=polar_method, grade=grade,
-        )
-        spectra.append(var)
-        totals.append(total)
-        keep.append(bool(conv))
-        iters.append(n_it)
-    spectra = torch.stack(spectra).cpu().numpy()
-    totals = torch.stack(totals).cpu().numpy()
-    keep = np.asarray(keep, dtype=bool)
-    return spectra[keep], totals[keep], np.asarray(iters)
+
+    def one_run(s):
+        omega = _start_block(s, k, n_obs, complexify, device)
+        if dist in _PM1_INT8:
+            return _fast.fast_surrogate_variance_tri(
+                s, omega, n_obs, n_vars, H=H, complexify=complexify,
+                rotated=rotated, n_rot=k, power=power, tol=tol,
+                n_iter=subspace_iters, polar_method=polar_method,
+                grade=grade)
+        fields = [surrogate_field((2 * s + i) & 0xFFFFFFFF, n_obs, p, dist,
+                                  device) for i, p in enumerate(n_vars)]
+        var, total, conv = _surrogate_variance(
+            fields, complexify, rotated, n_rot, power, tol, 'gram',
+            spectrum='fast', n_modes_fast=n_modes_fast,
+            subspace_iters=subspace_iters, omega=omega, hilbert_H=H,
+            polar_method=polar_method)
+        return var, total, conv, None
+
+    return _collect(one_run(s) for s in run_seeds(seed, n_runs))
 
 
 def rule_north_uncertainty(singular_values, n_obs, is_complex=False):
@@ -91,8 +205,15 @@ def _surrogate_variance(fields, complexify, rotated, n_rot, power, tol,
     (FFT-)complexified fields.  The total is the full-spectrum sum
     (unrotated; the nuclear norm in fast mode) or the sum over the
     ``n_rot`` rotated modes; ``converged`` is a Python bool.
+
+    bf16 fields are centered with an f32 mean rounded back to bf16, as the
+    JAX package centers them, and their data-sized products accumulate in
+    f32 (``core.fastpath._data_dot``); the FFT complexification and the
+    exact spectrum take them upcast to f32.
     """
-    fields = [f - f.mean(dim=0) for f in fields]
+    fields = [f - f.mean(dim=0, dtype=torch.float32).to(f.dtype)
+              if f.dtype == torch.bfloat16 else f - f.mean(dim=0)
+              for f in fields]
     bivariate = len(fields) == 2
     Xl = fields[0]
     Xr = fields[1] if bivariate else None
@@ -108,10 +229,13 @@ def _surrogate_variance(fields, complexify, rotated, n_rot, power, tol,
             Xl, Xr if bivariate else Xl, hilbert_H, omega, k=n_modes_fast,
             n_iter=subspace_iters)
         return svals, total, True
+    if complexify or spectrum != 'fast':
+        fields = [f.to(torch.float32) if f.dtype == torch.bfloat16 else f
+                  for f in fields]
     if complexify:
         fields = [_complexify(f) for f in fields]
-        Xl = fields[0]
-        Xr = fields[1] if bivariate else None
+    Xl = fields[0]
+    Xr = fields[1] if bivariate else None
     if rotated:
         if spectrum == 'fast':
             var, conv = _fast.fast_rotated_variance(
