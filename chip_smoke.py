@@ -74,7 +74,24 @@
    apply_coslat -> solve(complexify=True) -> rotate(10) ->
    rule_n(N_LONG_RUNS)``, longer than the analytic fold's 8192 steps;
    exactly 2 x N_LONG_RUNS launches of syrk and sign_field_sums; then
-   both kernels against their plain versions at that shape.
+   both kernels against their plain versions at that shape;
+12. ``extend_path``: the main path with ``solve(complexify=True,
+   extend='exp'|'theta', period=365)``, ``rule_n(16)`` (exactly 2 x 16
+   launches of syrk and sign_field_sums each) and ``bootstrapping(4)``;
+   the theta forecast's wall and launches at full width, and 4096 of its
+   columns in f32 on the card against f64 on the CPU;
+13. ``stream_path``: ``xMCA.from_chunks`` over the same host fields (16384-
+   and 9973-column chunks, then ``extend='exp'``) through the same path,
+   against the in-memory models (spectrum, EOFs, rotated variance, the
+   Rule-N null over the ratio of totals; 2 x 16 launches each), each
+   streamed pass's wall and rate;
+14. ``extend_small`` and ``stream_small``: extended and chunk-backed models
+   at 256 x 2 x 512 on the card and on the CPU;
+15. ``wide_stream_path``: two 2000 x (1800 x 3600) f32 fields, 103.7 GB in
+   all, streamed through the 80 GB card by ``MCA.from_chunks`` ->
+   ``normalize`` -> ``solve(complexify=True)`` -> ``rotate(10)``, built of
+   25 sign-flipped copies of one block each, so its Grams, spectrum and
+   EOF tiles have exact references; its solve's peak device memory.
 
 Any failure exits non-zero; nothing is caught.  The last lines are the
 kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
@@ -1834,6 +1851,475 @@ def ensemble_small(torch):
     _check(max(errs.values()) <= 1e-3, 'small Rule-N: card and CPU disagree')
 
 
+# ---------------------------------------------------------------------------
+# Boundary extension and out-of-core models
+# ---------------------------------------------------------------------------
+N_EXT_RUNS = 16      # Rule-N runs of each extended or streamed model: cut
+                     # for time only
+N_EXT_BOOT = 4       # bootstrap runs of each extended model: cut for time
+PERIOD = 365         # the fields are daily: a year, and T >= 2 periods, so
+                     # the theta forecast deseasonalizes
+THETA_COLS = 4096    # theta forecast columns held, f32 card vs f64 CPU
+# theta forecasts f32 (card) against f64 (CPU), max |difference| over the
+# column's std: tests/integration/test_theta_parity.py's oracle bounds
+THETA_TOL = {'max': 5e-3, 'median': 1e-4}
+STREAM_CHUNKS = (16384, 9973)   # columns a chunk; 9973 leaves a ragged end
+# chunk-backed against in-memory at full width (f32): singular values,
+# unrotated EOFs and rotated explained variance of modes 1-8 (9-10 are
+# noise in make_fields, inside the noise continuum the subspace iteration
+# does not resolve, where the summation order turns them and the varimax
+# mixes them), the Rule-N null
+STREAM_TOL = {'svals': 1e-4, 'eofs': 1e-3, 'variance': 1e-3, 'null': 1e-5}
+N_EOF_MODES = 8
+# the record larger than the card: 25 column tiles of one (2000 x 360 x
+# 720) block B, each B or -B, = 2000 x (1800 x 3600) per field
+WIDE_LAT, WIDE_LON, WIDE_TILES = 360, 720, 25
+WIDE_PEAK_GB = 16.0
+
+
+def _launch_gate(label, launches, n_runs):
+    """K1 and K2 launched exactly 2 x ``n_runs`` times (one +-1 Rule-N run
+    draws two fields and forms two Grams)."""
+    for name in ('syrk', 'sign_field_sums'):
+        _check(launches.get(name, 0) == 2 * n_runs,
+               '{} launched {} {} times, not 2 x {}'.format(
+                   label, name, launches.get(name, 0), n_runs))
+
+
+def theta_probe(torch, left):
+    """The theta forecast of the main path's left field at full width, as
+    ``complexify(extend='theta')`` forms it (the [field | flipped field]
+    block, 2000 x 200000): its wall, cold and warm, and the device kernels
+    one call launches (torch.profiler); then THETA_COLS of its columns in
+    f32 on the card against f64 on the CPU."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from xmca_tpu_torch.core.theta import theta_forecast
+    x = torch.as_tensor(np.asarray(left.values).reshape(N_OBS, -1),
+                        device='cuda')
+    x = x - x.mean(dim=0)
+    both = torch.cat([x, x.flip(0)], dim=1)
+    walls = {}
+    for name in ('cold', 'warm'):
+        _timed(torch, walls, name, lambda: theta_forecast(both, N_OBS,
+                                                          PERIOD))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        theta_forecast(both, N_OBS, PERIOD)
+        torch.cuda.synchronize()
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.self_device_time_total > 0)
+    del both
+    cols = np.random.default_rng(5).choice(x.shape[1], THETA_COLS,
+                                           replace=False)
+    sub = x[:, torch.as_tensor(cols, device='cuda')]
+    got = theta_forecast(sub, N_OBS, PERIOD).cpu().numpy()
+    sub = sub.cpu().double()
+    ref = theta_forecast(sub, N_OBS, PERIOD).numpy()
+    dev = np.abs(got - ref).max(axis=0) / sub.numpy().std(axis=0)
+    return walls, launches, dev
+
+
+def extend_path(torch, left, right, card):
+    """The main path with boundary extension: for 'exp' and 'theta'
+    (period 365), ``xMCA -> set_solver(truncate=10) -> normalize ->
+    apply_coslat -> solve(complexify=True, extend=...) -> rotate(10) ->
+    rule_n(16)``, the counters reset just before and read just after, then
+    ``bootstrapping(4)`` (standard); the theta forecast's own wall and
+    launches at full width and its f32 card error against f64.  Returns
+    the 'exp' model (stream_path compares against it)."""
+    import numpy as np
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.xarray import xMCA
+    models = {}
+    for extend in ('exp', 'theta'):
+        walls = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        m = _timed(torch, walls, 'ingest',
+                   lambda: xMCA(left, right, device='cuda'))
+
+        def prepare():
+            m.set_solver(truncate=N_ROT)
+            m.normalize()
+            m.apply_coslat()
+        _timed(torch, walls, 'set_solver + normalize + apply_coslat',
+               prepare)
+        _timed(torch, walls, 'solve', lambda: m.solve(
+            complexify=True, extend=extend, period=PERIOD))
+        _timed(torch, walls, 'rotate', lambda: m.rotate(N_ROT))
+        null = _timed(torch, walls, 'rule_n', lambda: _vals(
+            m.rule_n(N_EXT_RUNS, seed=SEED)))
+        launches = _counts(_build.launch_counts())
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        boot = _timed(torch, walls, 'bootstrapping', lambda: _vals(
+            m.bootstrapping(N_EXT_BOOT, n_modes=N_ROT,
+                            block_size=BOOT_BLOCK, seed=SEED)))
+        svals, var = _vals(m.singular_values(N_ROT)), _vals(m.variance(N_ROT))
+        _print_walls('extend_path {} (period {}) at {} x 2 x {} f32; {}'
+                     .format(extend, PERIOD, N_OBS, N_LAT * N_LON, card),
+                     walls)
+        print('extend_path {}: rule_n {:.4f} s/run, bootstrapping {:.4f} '
+              's/run; peak device memory through rule_n {:.2f} GB above the '
+              '{:.2f} GB resident; launches {}; Rule-N kept {}/{}, bootstrap '
+              'runs kept per mode {}; singular values {}; rotated variance {}'
+              .format(extend, walls['rule_n'] / N_EXT_RUNS,
+                      walls['bootstrapping'] / N_EXT_BOOT, peak, base / 1e9,
+                      launches, null.shape[1], N_EXT_RUNS,
+                      _kept(boot).tolist(),
+                      np.array2string(svals, precision=4),
+                      np.array2string(var, precision=4)))
+        _check(m._analysis['extend'] == extend
+               and m._fields['left'].is_complex(),
+               'extend_path {}: the model is not extended'.format(extend))
+        _launch_gate('extend_path ' + extend, launches, N_EXT_RUNS)
+        _check(null.shape == (N_ROT, N_EXT_RUNS),
+               'extend_path {}: Rule-N kept {} of {} runs'.format(
+                   extend, null.shape[1], N_EXT_RUNS))
+        _check(boot.shape == (N_ROT, N_EXT_BOOT)
+               and (_kept(boot) == N_EXT_BOOT).all(),
+               'extend_path {}: bootstrap kept {} of {} runs'.format(
+                   extend, _kept(boot).tolist(), N_EXT_BOOT))
+        _check(all(np.isfinite(a).all() for a in (svals, var, null, boot)),
+               'extend_path {}: non-finite results'.format(extend))
+        models[extend] = m
+    del models['theta']
+    torch.cuda.empty_cache()
+    walls, launches, dev = theta_probe(torch, left)
+    _print_walls('theta forecast of the [field | flipped field] block ({} x '
+                 '{} f32, period {}); {}'.format(N_OBS, 2 * N_LAT * N_LON,
+                                                 PERIOD, card), walls)
+    print('theta forecast: {} device kernels a call (torch.profiler); {} '
+          'columns f32 card vs f64 CPU, max |difference| / column std: max '
+          '{:.2e} (tol {:g}), median {:.2e} (tol {:g})'.format(
+              launches, THETA_COLS, dev.max(), THETA_TOL['max'],
+              np.median(dev), THETA_TOL['median']))
+    _check(dev.max() < THETA_TOL['max']
+           and np.median(dev) < THETA_TOL['median'],
+           'theta forecasts: card f32 and CPU f64 disagree')
+    return models['exp']
+
+
+def _host_loader(torch, arr, width, passes=None):
+    """A chunk loader over the host array ``arr (n, p)``: views of
+    ``width`` columns.  With ``passes``, each pass appends its seconds, up
+    to a device synchronize after its last chunk was taken."""
+    def loader():
+        t0 = time.perf_counter()
+        for s in range(0, arr.shape[1], width):
+            yield arr[:, s:s + width]
+        if passes is not None:
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+    return loader
+
+
+def _print_passes(label, passes, gb):
+    """The four streamed passes' walls and rates, in the order a solve
+    reads the loaders; ``gb`` the bytes of one pass over one field."""
+    names = ('Gram left', 'Gram right', 'projection left',
+             'projection right')
+    print('{}: {}'.format(label, ', '.join(
+        '{} {:.3f} s ({:.2f} GB/s)'.format(name, sec, gb / sec)
+        for name, sec in zip(names, passes))))
+
+
+def _stream_vs(ms, ref, null, ref_null):
+    """A chunk-backed model against an in-memory one: singular values,
+    unrotated EOFs (aligned) and rotated explained variance of modes
+    1-N_EOF_MODES, and the Rule-N null over the ratio of the rescaling
+    totals.  Returns the errors and the per-mode rotated variance
+    errors of all N_ROT modes."""
+    import numpy as np
+    per_mode = np.abs(_vals(ms.explained_variance(N_ROT))
+                      / _vals(ref.explained_variance(N_ROT)) - 1)
+    errs = {'svals': _rel(ms.singular_values(N_ROT),
+                          ref.singular_values(N_ROT)),
+            'variance': float(per_mode[:N_EOF_MODES].max())}
+    got, want = ms.eofs(N_ROT, rotated=False), ref.eofs(N_ROT, rotated=False)
+    errs['eofs'] = max(_rel(_align(_vals(got[k])[..., :N_EOF_MODES],
+                                   _vals(want[k])[..., :N_EOF_MODES]),
+                            _vals(want[k])[..., :N_EOF_MODES])
+                       for k in want)
+    scale = float(_vals(ms.variance()).sum() / _vals(ref.variance()).sum())
+    errs['null'] = (float(np.abs(null / (ref_null * scale) - 1).max())
+                    if null.shape == ref_null.shape else float('inf'))
+    return errs, per_mode
+
+
+def stream_path(torch, m, m_exp, left, right, card):
+    """``xMCA.from_chunks`` over the main path's two host fields through
+    ``normalize -> apply_coslat -> solve(complexify=True) -> rotate(10) ->
+    rule_n(16)``, with 16384- and 9973-column chunks (a ragged last one),
+    then with ``extend='exp'``; each against the in-memory model of the
+    same path (``m``, ``m_exp``); the counters reset just before each
+    model is built and read just after its ``rule_n``.  Returns the peak
+    device memory of the 16384-column solve (GB above the resident)."""
+    import numpy as np
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.xarray import xMCA
+    coords = {d: _vals(left.coords[d]) for d in ('time', 'lat', 'lon')}
+    arrays = [_vals(f).reshape(N_OBS, -1) for f in (left, right)]
+    gb = arrays[0].nbytes / 1e9
+    ref_nulls = {None: _vals(m.rule_n(N_EXT_RUNS, seed=SEED)),
+                 'exp': _vals(m_exp.rule_n(N_EXT_RUNS, seed=SEED))}
+    solve_peak = None
+    for width, extend in ((STREAM_CHUNKS[0], False), (STREAM_CHUNKS[1], False),
+                          (STREAM_CHUNKS[0], 'exp')):
+        ref = m_exp if extend else m
+        walls, passes = {}, []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        ms = xMCA.from_chunks(
+            *[_host_loader(torch, a, width, passes) for a in arrays],
+            coords=coords, device='cuda')
+        ms.set_solver(truncate=N_ROT)
+        ms.normalize()
+        ms.apply_coslat()
+        torch.cuda.reset_peak_memory_stats()
+        _timed(torch, walls, 'solve', lambda: ms.solve(
+            complexify=True, extend=extend, period=PERIOD))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        _timed(torch, walls, 'rotate', lambda: ms.rotate(N_ROT))
+        null = _timed(torch, walls, 'rule_n', lambda: _vals(
+            ms.rule_n(N_EXT_RUNS, seed=SEED)))
+        launches = _counts(_build.launch_counts())
+        errs, per_mode = _stream_vs(ms, ref, null, ref_nulls[extend or None])
+        label = 'stream_path {}-column chunks{}'.format(
+            width, ', extend exp' if extend else '')
+        _print_walls('{} at {} x 2 x {} f32; {}'.format(
+            label, N_OBS, N_LAT * N_LON, card), walls)
+        _print_passes(label + ' passes ({:.3f} GB a field)'.format(gb),
+                      passes, gb)
+        print('{}: solve peak device memory {:.2f} GB above the {:.2f} GB '
+              'resident; launches {}; against the in-memory model: {} '
+              '(tol {}); rotated explained variance rel per mode {}'.format(
+                  label, peak, base / 1e9, launches, errs, STREAM_TOL,
+                  np.array2string(per_mode, precision=2)))
+        _launch_gate(label, launches, N_EXT_RUNS)
+        _check(all(errs[k] <= STREAM_TOL[k] for k in STREAM_TOL),
+               '{}: the chunk-backed model differs: {}'.format(label, errs))
+        if solve_peak is None:
+            solve_peak = peak
+        del ms
+    return solve_peak
+
+
+def wide_stream_path(torch, card, peak_800mb):
+    """A record larger than the card: two fields of 2000 steps x (1800 x
+    3600) cells (a 0.1-degree grid), 51.8 GB f32 each, streamed by
+    ``MCA.from_chunks -> normalize -> set_solver(truncate=10) ->
+    solve(complexify=True) -> rotate(10)``.  Each field is 25 column
+    tiles of one base block B (2000 x 360 x 720), each tile B or -B by a
+    seeded sign, so every pass reads the same host arrays.  Exact gates:
+    the streamed Grams are 25 x B's; the spectrum and totals are the port's
+    n x n reduction of that Gram at the full width; tile j's unrotated and
+    rotated EOFs are its sign times tile 0's."""
+    import numpy as np
+    from xmca_tpu_torch.api.array import MCA
+    from xmca_tpu_torch.core import streaming as st
+    from xmca_tpu_torch.core.fastpath import (_eps, hilbert_operator,
+                                              start_block)
+    walls = {}
+    tile = WIDE_LAT * WIDE_LON
+    p = WIDE_TILES * tile
+    grid = (WIDE_TILES * WIDE_LAT // 5, 5 * WIDE_LON)    # (1800, 3600)
+    blocks = _timed(torch, walls, 'base blocks (card, to host)', lambda: [
+        _vals(f).reshape(N_OBS, -1) for f in make_fields_on_card(
+            torch, N_OBS, WIDE_LAT, WIDE_LON, 71)])
+    negs = _timed(torch, walls, 'negated blocks (host)',
+                  lambda: [np.negative(b) for b in blocks])
+    signs = [np.random.default_rng(73 + i).choice([-1, 1], WIDE_TILES)
+             for i in range(2)]
+    signs[0][0] = signs[1][0] = 1
+    passes = []
+
+    def loader(i):
+        def chunks():
+            t0 = time.perf_counter()
+            for s in signs[i]:
+                yield blocks[i] if s > 0 else negs[i]
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+        return chunks
+
+    # B in memory: its centered, normalized Gram and its own solve
+    def in_memory():
+        mm = MCA(*blocks, device='cuda')
+        mm.normalize()
+        mm.set_solver(truncate=N_ROT)
+        mm.solve(complexify=True)
+        return mm
+    mb = _timed(torch, walls, 'B in memory (ingest, normalize, solve)',
+                in_memory)
+    grams_b = [f @ f.T for f in (mb._fields['left'], mb._fields['right'])]
+    s_b = _vals(mb.singular_values(N_ROT))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = MCA.from_chunks(loader(0), loader(1), n_observations=N_OBS,
+                         left_shape=grid, right_shape=grid, device='cuda')
+    ms.normalize()
+    ms.set_solver(truncate=N_ROT)
+    _timed(torch, walls, 'streamed solve', lambda: ms.solve(complexify=True))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    _timed(torch, walls, 'rotate', lambda: ms.rotate(N_ROT))
+    rot_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # the n x n reduction of 25 x B's Gram at the full width
+    gram_err = max(float(torch.linalg.norm(ms._stream_grams[k]
+                                           - WIDE_TILES * g)
+                         / torch.linalg.norm(WIDE_TILES * g))
+                   for k, g in zip(('left', 'right'), grams_b))
+    H = hilbert_operator(N_OBS, torch.float32, 'cuda')
+
+    def reduction(grams):
+        """The n x n reduction the streamed solve runs, of ``grams``:
+        (singular values, totals, the folded Grams' condition numbers)."""
+        folded = [st._fold_jitter(g, H, p, 1e-6, _eps(torch.float32), True)
+                  for g in grams]
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(0)
+        omega = start_block(N_OBS, N_ROT, folded[0].dtype, gen)
+        _, _, _, s, _, tot = st._reduce_streamed(
+            folded[0], folded[1], omega, N_OBS - 1, N_ROT,
+            ms._subspace_iters, True)
+        ev = [torch.linalg.eigvalsh(f.to(torch.complex128)) for f in folded]
+        return (s.cpu().numpy(), tot.cpu().numpy(),
+                max(float(e[-1] / e[0]) for e in ev))
+
+    s_wide = _vals(ms.singular_values(N_ROT))
+    got = np.r_[s_wide, ms._analysis['total_covariance'],
+                ms._analysis['total_squared_covariance']]
+    s_ref, totals, kappa = reduction([WIDE_TILES * g for g in grams_b])
+    red_err = np.abs(got / np.r_[s_ref, totals] - 1)
+    s_own, totals_own, _ = reduction([ms._stream_grams[k]
+                                      for k in ('left', 'right')])
+    own_err = float(np.abs(got / np.r_[s_own, totals_own] - 1).max())
+    # an f32 Cholesky of a Gram of condition kappa moves its small
+    # directions by up to ~kappa x the Gram's relative difference: the
+    # noise modes and the totals (sums over every singular value) may
+    # move that far between two f32 evaluations of the same Gram
+    red_tol = max(1e-4, kappa * gram_err)
+    del grams_b, mb
+    # tile j's EOFs are s_j times tile 0's (rows 72 j .. 72 j + 71)
+    rows = tile // grid[1]
+    sym_err = 0.0
+    for rotated in (False, True):
+        eofs = ms.eofs(N_ROT, rotated=rotated)
+        for i, k in enumerate(('left', 'right')):
+            e = eofs[k]
+            e0 = e[:rows]
+            scale = np.abs(e0).max()
+            for j in range(1, WIDE_TILES):
+                sym_err = max(sym_err, float(
+                    np.abs(e[j * rows:(j + 1) * rows] - signs[i][j] * e0)
+                    .max() / scale))
+        del eofs
+    gb = p * N_OBS * 4 / 1e9
+    _print_walls('wide_stream_path at {} x 2 x {} ({} x {} cells) f32, {:.1f} '
+                 'GB a field, {:.1f} GB in all; {}'.format(
+                     N_OBS, p, grid[0], grid[1], gb, 2 * gb, card), walls)
+    _print_passes('wide_stream_path passes ({:.1f} GB a field)'.format(gb),
+                  passes, gb)
+    print('wide_stream_path: streamed solve peak device memory {:.2f} GB '
+          'above the {:.2f} GB resident (B in memory; tol {:g} GB; the '
+          '800 MB fields\' streamed solve: {:.2f} GB), through rotate {:.2f} '
+          'GB; streamed Grams vs {t} x B\'s rel Frobenius {:.2e} (tol '
+          '1e-5); singular values 1-{m} vs the n x n reduction of {t} x B\'s '
+          'Gram at p = {} rel {:.2e} (tol 1e-4); every singular value and '
+          'the two totals vs it rel {} (tol {:.2e}: 1e-4, or the folded '
+          'Grams\' condition number {:.3e} x the Grams\' difference); vs '
+          'the same reduction of the model\'s own Grams rel {:.2e} (tol '
+          '1e-6); EOFs tile j vs s_j tile 0, unrotated and rotated, rel '
+          '{:.2e} (tol 1e-5); rotate converged in {} iterations; wide '
+          'singular values over {t} x B\'s in-memory ones (the jitter bias, '
+          'not a gate): {}'.format(
+              peak, base / 1e9, WIDE_PEAK_GB, peak_800mb, rot_peak, gram_err,
+              p, red_err[:N_EOF_MODES].max(),
+              np.array2string(red_err, precision=2), red_tol, kappa, own_err,
+              sym_err, ms._rotate_iterations,
+              np.array2string(s_wide / (WIDE_TILES * s_b), precision=6),
+              t=WIDE_TILES, m=N_EOF_MODES))
+    _check(peak < WIDE_PEAK_GB, 'the wide streamed solve took {:.2f} GB'
+           .format(peak))
+    _check(gram_err <= 1e-5, 'wide Grams differ from 25 x B: {:.2e}'
+           .format(gram_err))
+    _check(red_err[:N_EOF_MODES].max() <= 1e-4
+           and red_err.max() <= red_tol and own_err <= 1e-6,
+           'wide spectrum differs from the n x n reduction: {} (own Grams '
+           '{:.2e})'.format(red_err, own_err))
+    _check(sym_err <= 1e-5, 'wide EOF tiles are not sign copies: {:.2e}'
+           .format(sym_err))
+    _check(ms._analysis['is_rotated'] and np.isfinite(s_wide).all()
+           and np.isfinite(_vals(ms.variance())).all(),
+           'wide path: not rotated or non-finite results')
+    return {'walls': walls, 'peak_gb': peak, 'passes': passes}
+
+
+def _small_pair(torch, build):
+    """``build(device)`` on the card and on the CPU: singular values (tol
+    1e-4), rotated variance (1e-3) and the null q95 (2e-2) of rule_n(8),
+    the small path's bounds."""
+    import numpy as np
+    out = {}
+    for device in ('cuda', 'cpu'):
+        mm = build(device)
+        out[device] = (_vals(mm.singular_values()), _vals(mm.variance()),
+                       np.quantile(_vals(mm.rule_n(8, seed=SEED)), 0.95,
+                                   axis=1))
+    return [float(np.abs(a / b - 1).max())
+            for a, b in zip(out['cuda'], out['cpu'])]
+
+
+def _small_models(torch, label, cases):
+    """``cases`` of (kind, extend) at 256 x 2 x 512 (monthly: period 12)
+    on the card and on the CPU: in-memory models or chunk-backed ones
+    (100-column chunks)."""
+    from xmca_tpu_torch.xarray import xMCA
+    left, right = make_fields(256, 16, 32, seed0=81)
+    coords = {d: _vals(left.coords[d]) for d in ('time', 'lat', 'lon')}
+    arrays = [_vals(f).reshape(256, -1) for f in (left, right)]
+    errs = {}
+    for kind, extend in cases:
+        def build(device):
+            if kind == 'streamed':
+                mm = xMCA.from_chunks(*[_host_loader(torch, a, 100)
+                                        for a in arrays], coords=coords,
+                                      device=device)
+            else:
+                mm = xMCA(left, right, device=device)
+            mm.set_solver(truncate=4)
+            mm.normalize()
+            mm.apply_coslat()
+            mm.solve(complexify=True, extend=extend, period=12)
+            mm.rotate(4)
+            return mm
+        errs['{} {}'.format(kind, extend or 'plain')] = _small_pair(torch,
+                                                                    build)
+    print('{} card vs CPU at 256 x 2 x 512, rel singular values / rotated '
+          'variance / null q95 of rule_n(8) (tol 1e-4 / 1e-3 / 2e-2): {}'
+          .format(label, ', '.join('{} {:.1e} / {:.1e} / {:.1e}'.format(
+              k, *v) for k, v in errs.items())))
+    _check(all(v[0] <= 1e-4 and v[1] <= 1e-3 and v[2] <= 2e-2
+               for v in errs.values()),
+           '{}: card and CPU disagree'.format(label))
+
+
+def extend_small(torch):
+    """Extended in-memory models small, 'exp' and 'theta', card vs CPU."""
+    _small_models(torch, 'extend_small', [('in memory', 'exp'),
+                                          ('in memory', 'theta')])
+
+
+def stream_small(torch):
+    """Chunk-backed models small, plain and 'exp', card vs CPU."""
+    _small_models(torch, 'stream_small', [('streamed', False),
+                                          ('streamed', 'exp')])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1915,7 +2401,9 @@ def main():
     boot_path(torch, m, card)
     saveload_path(torch, m, left, right, card)
     ens = ensemble_path(torch, m, null, card)
-    del m, left, right
+    m_exp = extend_path(torch, left, right, card)
+    stream_peak = stream_path(torch, m, m_exp, left, right, card)
+    del m, m_exp, left, right
     torch.cuda.empty_cache()
 
     # the same path small, on the card and on the CPU (plain versions,
@@ -1943,7 +2431,11 @@ def main():
     fast_vs_exact(torch, card)
     int8_variant(torch)
     ensemble_small(torch)
+    extend_small(torch)
+    stream_small(torch)
     long_k1, long_k2, _ = long_path(torch, card)
+    torch.cuda.empty_cache()
+    wide_stream_path(torch, card, stream_peak)
 
     kernels = [
         dict(name='syrk', route='cuda', source='xmca_tpu_torch/csrc/syrk.cu',

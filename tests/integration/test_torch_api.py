@@ -4,9 +4,8 @@
   arrays, ``rule_n`` and ``bootstrapping`` take ``disable_progress``,
   ``solve`` raises the reference's all-NaN ``RuntimeError`` where JAX does
   and nowhere else, and only the unported surface (a mesh, another
-  ensemble axis, boundary extension) raises ``NotImplementedError``
-  (every JAX ``set_solver`` key is accepted or refused, never a
-  ``TypeError``).
+  ensemble axis) raises ``NotImplementedError`` (every JAX ``set_solver``
+  key is accepted or refused, never a ``TypeError``).
 * ``bootstrapping``: the JAX model's solution is carried into the port
   (``utils.state``), both packages run the exact spectrum with rotation
   tolerance 1e-8, and one block spans the resampled axis, so every run
@@ -19,12 +18,18 @@
   packages' threshold patched to 64 steps at (128 x 160, 128 x 140)
   (1e-7), where ``rule_n`` builds its Hilbert operator above the
   threshold.
+* Boundary extension (``solve(complexify=True, extend='exp'|'theta')``):
+  the solve, ``predict`` and ``bootstrapping`` ('standard' and
+  'iterative', one block spanning the axis, exact spectrum) of the port's
+  own solve and of the JAX solution carried into it, against JAX at
+  1e-7; ``extend='foo'`` raises JAX's ``ValueError``.
 """
 import re
 
 import numpy as np
 import pytest
 
+from tests.conftest import align_modes
 from xmca_tpu.array import MCA as JMCA
 from xmca_tpu.compat import xr as jxr
 from xmca_tpu.xarray import xMCA as JxMCA
@@ -194,9 +199,8 @@ _INVALID = dict(method='qr', spectrum='dense', surrogate_source='file',
 @pytest.mark.parametrize('api', ['mca', 'xmca'])
 def test_unported_surface_raises_not_implemented(api):
     """F4: every JAX ``set_solver`` key is accepted, but for ``mesh`` and
-    another ``ensemble_axis``, which raise ``NotImplementedError`` (as
-    does ``solve(extend=...)``); invalid values raise JAX's
-    ``ValueError``; ``batch_size`` and ``runs_per_dispatch`` change
+    another ``ensemble_axis``, which raise ``NotImplementedError``;
+    invalid values raise JAX's ``ValueError``; ``batch_size`` and ``runs_per_dispatch`` change
     nothing; ``spectrum='exact'`` runs Rule-N (the 'draw' source) and
     bootstrapping; ``set_field_names`` is ported."""
     jm, tm = _pair(api, 2)
@@ -211,9 +215,6 @@ def test_unported_surface_raises_not_implemented(api):
             jm.set_solver(**{key: value})
         with pytest.raises(ValueError, match=re.escape(str(ref.value))):
             tm.set_solver(**{key: value})
-    with pytest.raises(NotImplementedError):
-        _build('torch', api, arrays, coords).solve(complexify=True,
-                                                    extend='exp')
     plain = _values(tm.rule_n(4, n_modes=2, seed=9))
     tm.set_solver(batch_size=3, runs_per_dispatch=5)
     np.testing.assert_array_equal(
@@ -390,3 +391,108 @@ def test_rule_n_above_the_fold_threshold(short_fold, monkeypatch):
                                        atol=1e-7)
     assert nulls[0].shape == (3, 6) and np.isfinite(nulls[0]).all()
     np.testing.assert_allclose(nulls[0], nulls[1], rtol=1e-9)
+
+
+# ------------------------------------------------------- boundary extension
+# (api, fields, extend, period, solve, rotation power (0: none))
+EXTEND_CASES = [
+    ('mca', 2, 'exp', 4, 'dense', 1),
+    ('mca', 1, 'theta', 12, 'wide', 0),
+    ('xmca', 2, 'theta', 12, 'wide', 1),
+    ('xmca', 2, 'exp', 1, 'dense', 2),
+]
+
+
+def _extend_id(case):
+    api, n_fields, extend, period, solve, power = case
+    return '-'.join([api, 'bi' if n_fields == 2 else 'uni', extend,
+                     str(period), solve, ('rot%d' % power) if power
+                     else 'unrot'])
+
+
+def _extended(pkg, case, arrays, coords):
+    api, _, extend, period, solve, power = case
+    m = _build(pkg, api, arrays, coords)
+    if solve == 'wide':
+        m.set_solver(truncate=K)
+    m.normalize()
+    if api == 'xmca':
+        m.apply_coslat()
+    m.solve(complexify=True, extend=extend, period=period)
+    if power:
+        m.rotate(K, power=power)
+    return m
+
+
+@pytest.mark.parametrize('case', EXTEND_CASES, ids=_extend_id)
+def test_extended_solve_predict_bootstrap_match_jax(case):
+    """An extended model's spectrum, EOFs (aligned), ``predict`` of new
+    steps and single-block bootstraps, the port's own solve and the JAX
+    solution carried into the port, against JAX at 1e-7."""
+    api, n_fields, extend, _, solve, power = case
+    arrays, coords = _arrays(n_fields)
+    jm = _extended('jax', case, arrays, coords)
+    own = _extended('torch', case, arrays, coords)
+    carried = _build('torch', api, arrays, coords)
+    install_state(carried, to_state(jm))
+    assert own._analysis['extend'] == extend
+    assert own._fields['left'].is_complex() and not own._complexify_pending
+    ref_s = _values(jm.singular_values(K))
+    ref_v = _values(jm.variance(K))
+    new = arrays[0][:10]
+    if api == 'xmca':
+        new = txr.DataArray(new, dims=('time', 'lat', 'lon'),
+                            coords=dict(coords, time=coords['time'][:10]))
+        jnew = jxr.DataArray(arrays[0][:10], dims=('time', 'lat', 'lon'),
+                             coords=dict(coords, time=coords['time'][:10]))
+    else:
+        jnew = new
+    ref_p = _values(jm.predict(left=jnew, n=3)['left'])
+    kw = dict(n_modes=K, on_left=True, on_right=n_fields == 2,
+              block_size=N_OBS, seed=5)
+    for m in (jm, own, carried):
+        m.set_solver(spectrum='exact', ensemble_tol=1e-8)
+    refs = {st: _values(jm.bootstrapping(2, strategy=st,
+                                         disable_progress=True, **kw))
+            for st in ('standard', 'iterative')}
+    for tm in (own, carried):
+        np.testing.assert_allclose(_values(tm.singular_values(K)), ref_s,
+                                   rtol=BOOT_TOL)
+        np.testing.assert_allclose(_values(tm.variance(K)), ref_v,
+                                   rtol=BOOT_TOL)
+        got_p = _values(tm.predict(left=new, n=3)['left'])
+        got_p = got_p if tm is carried else align_modes(got_p, ref_p)
+        np.testing.assert_allclose(got_p, ref_p, rtol=0,
+                                   atol=BOOT_TOL * np.abs(ref_p).max())
+        eofs, ref_e = (_values(m.eofs(K, rotated=False)['left'])
+                       for m in (tm, jm))
+        np.testing.assert_allclose(
+            align_modes(eofs.reshape(-1, K), ref_e.reshape(-1, K)),
+            ref_e.reshape(-1, K), rtol=0,
+            atol=BOOT_TOL * np.nanmax(np.abs(ref_e)))
+        for st, ref in refs.items():
+            got = _values(tm.bootstrapping(2, strategy=st, **kw))
+            assert (ref != 0).all()
+            np.testing.assert_allclose(got, ref, rtol=BOOT_TOL)
+
+
+def test_invalid_extension_raises_jax_error():
+    """``solve(complexify=True, extend='foo')`` raises JAX's ``ValueError``
+    before any state changes; without ``complexify`` the value is only
+    stored, as in the JAX package."""
+    arrays, coords = _arrays(2)
+    for api in ('mca', 'xmca'):
+        jm, tm = (_build(pkg, api, arrays, coords) for pkg in ('jax',
+                                                               'torch'))
+        with pytest.raises(ValueError) as ref:
+            jm.solve(complexify=True, extend='foo')
+        with pytest.raises(ValueError) as got:
+            tm.solve(complexify=True, extend='foo')
+        assert str(got.value) == str(ref.value)
+        assert not tm._analysis['is_complex']
+        for m in (jm, tm):
+            m.solve(extend='foo')
+        assert tm._analysis['extend'] == jm._analysis['extend'] == 'foo'
+        np.testing.assert_allclose(_values(tm.singular_values(3)),
+                                   _values(jm.singular_values(3)),
+                                   rtol=1e-9)

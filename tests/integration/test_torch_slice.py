@@ -158,7 +158,8 @@ def test_port_imports_no_jax(tmp_path):
     keeps its own copies of what it needs (version, compat with netCDF,
     text, tools, viz).  Every module of the package is imported, then the
     ones save/load and the plots import lazily (h5py, matplotlib, yaml)
-    are driven on a small model."""
+    are driven on a small model, and a chunk-backed model streams one of
+    the saved files (``netcdf_chunks``) through an extended solve."""
     code = (
         'import importlib, pkgutil, sys, os\n'
         'import matplotlib\n'
@@ -181,6 +182,13 @@ def test_port_imports_no_jax(tmp_path):
         'xMCA(device="cpu").load_analysis(os.path.join(d, "info.xmca"))\n'
         'm.save_plot(1, path=os.path.join(d, "m.png"))\n'
         'm.summary()\n'
+        'from xmca_tpu_torch.compat import netcdf_chunks\n'
+        'load, n, shape, dims, co = netcdf_chunks(os.path.join(d, '
+        '"left.nc"), max_chunk_bytes=200, return_coords=True)\n'
+        's = xMCA.from_chunks(load, load, coords=co, device="cpu")\n'
+        's.set_solver(truncate=2)\n'
+        's.solve(complexify=True, extend="theta", period=2)\n'
+        's.pcs(2)\n'
         'print(len(names), sorted(m for m in sys.modules if '
         'm.split(".")[0] in ("xmca_tpu", "jax", "jaxlib")))\n')
     out = subprocess.run([sys.executable, '-c', code, str(tmp_path)],

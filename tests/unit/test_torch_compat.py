@@ -7,7 +7,9 @@ nothing of the JAX package).  Each copy is held against its original on
 the same inputs: the parts ``xMCA`` uses (construction, ``.values``,
 ``.dims``, ``.coords`` and the dimension-broadcast product of
 ``_weight_columns``), netCDF files written by either package and read by
-both (real, complex, NaN, coordinate attributes), the text helpers, the
+both (real, complex, NaN, coordinate attributes), the out-of-core loader
+``compat.netcdf_chunks`` over a file with a ``_FillValue``, the text
+helpers, the
 longitude wrap and map extent (the port's ``get_extent`` raises its
 ``KeyError``; the original returns None), and the version string.
 """
@@ -149,3 +151,43 @@ def test_xarray_tools_match():
                                                 dims=('y', 'x'))) is None
     with pytest.raises(KeyError, match='lon'):
         ttools.get_extent(bare)
+
+
+@pytest.mark.parametrize('max_chunk_bytes', [800, 2 ** 20],
+                         ids=['slabs', 'one-slab'])
+def test_netcdf_chunks_match(tmp_path, max_chunk_bytes):
+    """``netcdf_chunks`` over a (time, lat, lon) file written by the port's
+    h5py writer, with a ``_FillValue`` and a NaN: the same slabs (in f64
+    and cast to f32), shapes, dims and coordinates as the JAX package's,
+    in several slabs and in one; the loader reads afresh each call."""
+    from xmca_tpu.compat import netcdf_chunks as j_chunks
+    from xmca_tpu_torch.compat import netcdf_chunks as t_chunks
+    from xmca_tpu_torch.compat.netcdf import write_dataarray
+    rng = np.random.default_rng(7)
+    values = rng.standard_normal((12, 5, 4))
+    values[3, 1, 2] = -999.0
+    values[0, 4, 0] = np.nan
+    path = str(tmp_path / 'field.nc')
+    write_dataarray(path, 'sst', values, ('time', 'lat', 'lon'),
+                    coords={'time': np.arange(12.0),
+                            'lat': np.linspace(-40, 40, 5)},
+                    attrs={'_FillValue': -999.0})
+    for dtype in (None, np.float32):
+        kw = dict(max_chunk_bytes=max_chunk_bytes, dtype=dtype,
+                  return_coords=True)
+        got, ref = t_chunks(path, **kw), j_chunks(path, **kw)
+        assert got[1:4] == ref[1:4] == (12, (5, 4), ('time', 'lat', 'lon'))
+        assert sorted(got[4]) == sorted(ref[4])
+        for d in ref[4]:
+            np.testing.assert_array_equal(got[4][d], ref[4][d])
+        for _ in range(2):
+            slabs, ref_slabs = list(got[0]()), list(ref[0]())
+            assert len(slabs) == len(ref_slabs)
+            assert (len(slabs) > 1) == (max_chunk_bytes < 2 ** 20)
+            for a, b in zip(slabs, ref_slabs):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+        full = np.concatenate(slabs, axis=1)
+        assert np.isnan(full[3, 1 * 4 + 2]) and np.isnan(full[0, 16])
+    loader, n_obs, shape = t_chunks(path)
+    assert (n_obs, shape) == (12, (5, 4))

@@ -9,8 +9,11 @@ amplitude and phase, correlation patterns, reconstruction, ``predict``,
 and ``load_analysis`` (the array half of save/load; ``xMCA`` writes the
 files).  Fields and singular vectors live on the device named at
 construction (``'cuda'`` by default); every product runs there and only a
-getter's final result is copied to numpy.  Options the port does not
-implement yet (a device mesh, boundary extension) raise
+getter's final result is copied to numpy.  ``solve(complexify=True,
+extend='exp'|'theta')`` complexifies with boundary extension, and
+``MCA.from_chunks`` builds a chunk-backed (out-of-core) model whose data
+streams through the device (``core.streaming``).  What the port does not
+implement yet (a device mesh, bootstrapping a chunk-backed model) raises
 ``NotImplementedError`` instead of running something else.
 
 The Monte-Carlo methods run the accelerator configuration of the JAX
@@ -87,22 +90,23 @@ def _loadings(V, col_w, R, inv_norm, order, pool):
     return ((V[:, :pool] * col_w) @ R * inv_norm)[:, order]
 
 
-def _scores(X, V, whiten, pool):
-    """Unrotated PC series: ``(X V) / sqrt(s)``."""
-    return (X @ V[:, :pool]) * whiten
+def _scores(XV, whiten):
+    """Unrotated PC series from the raw scores ``X V``: ``(X V) /
+    sqrt(s)``."""
+    return XV * whiten
 
 
-def _scores_rotated(X, V, whiten, R_it, order, pool):
+def _scores_rotated(XV, whiten, R_it, order):
     """Rotated PC series: ``((X V) / sqrt(s)) R^-T``, variance-ordered."""
-    return (_scores(X, V, whiten, pool) @ R_it)[:, order]
+    return (_scores(XV, whiten) @ R_it)[:, order]
 
 
-def _reconstruct_factors(X, V, whiten, R_it, col_w, R, inv_norm, norm_keep,
+def _reconstruct_factors(XV, V, whiten, R_it, col_w, R, inv_norm, norm_keep,
                          order, pool, keep):
     """Rank-k factors ``(S, W)`` of the mode-subset reconstruction
     ``real(S W^H)``: the eigen-scaled rotated PCs (n_obs, k) and the
     rotated spatial vectors (p, k)."""
-    S = _scores_rotated(X, V, whiten, R_it, order, pool)[:, keep] * norm_keep
+    S = _scores_rotated(XV, whiten, R_it, order)[:, keep] * norm_keep
     W = _loadings(V, col_w, R, inv_norm, order, pool)[:, keep]
     return S, W
 
@@ -117,15 +121,20 @@ def _real_factors(S, W):
     return S, W
 
 
-def _pattern(X, Xs, V, whiten, R_it, order, cos_p, sin_p, pool, keep):
-    """Pearson correlation maps of real(X) against the phase-shifted real
-    PCs of Xs."""
-    S = _scores_rotated(Xs, V, whiten, R_it, order, pool)[:, keep]
+def _pattern_series(XsV, whiten, R_it, order, cos_p, sin_p, keep):
+    """The centered, phase-shifted real rotated PCs a correlation map
+    correlates against, from the raw scores ``Xs V``."""
+    S = _scores_rotated(XsV, whiten, R_it, order)[:, keep]
     if S.is_complex():
         S = S.real * cos_p - S.imag * sin_p
+    return S - S.mean(dim=0)
+
+
+def _pattern(X, Sc):
+    """Pearson correlation maps of real(X) against the centered series
+    ``Sc``."""
     Xr = X.real
     Xc = Xr - Xr.mean(dim=0)
-    Sc = S - S.mean(dim=0)
     den = (torch.linalg.norm(Xc, dim=0)[:, None]
            * torch.linalg.norm(Sc, dim=0)[None, :])
     return (Xc.T @ Sc) / den
@@ -161,6 +170,11 @@ class MCA:
         self._no_nan_index = {}
         self._n_observations = {}
         self._hilbert = None
+        # a chunk-backed model's loaders and column weights (from_chunks)
+        self._chunk_loaders = None
+        self._stream_weights = {}
+        # a chunk-backed solve's precision
+        self._stream_dtype = None
 
         data = dict(zip(self._keys, fields))
         self._set_field_meta(data)
@@ -325,10 +339,106 @@ class MCA:
         self._field_names['left'] = left
         self._field_names['right'] = right
 
+    # ------------------------------------------------- out-of-core ingestion
+    @classmethod
+    def from_chunks(cls, left, right=None, *, n_observations, left_shape,
+                    right_shape=None, device='cuda'):
+        """A chunk-backed model of fields larger than the device's memory
+        (or the host's).
+
+        ``left``, ``right``: callables returning a fresh iterable of host
+        ``(n_observations, p_chunk)`` arrays that together hold the
+        field's columns in order (reads of a memmap, a zarr or netCDF
+        store: :func:`xmca_tpu_torch.compat.netcdf_chunks`); each solve
+        reads every field twice.  ``left_shape``, ``right_shape``: the
+        spatial shapes (or flat column counts).  ``solve`` streams the
+        data through ``device`` in those chunks (``set_solver(truncate=k)``
+        sets the mode count, default 20), plain, complexified or with
+        boundary extension; ``normalize``, ``apply_weights`` and coslat
+        apply per chunk in every pass.  The getters read the score
+        accumulators of the solve; ``fields``, the correlation patterns
+        and ``save_analysis`` read the loaders again.  A chunk's columns
+        with a NaN are dropped, as in memory.  ``bootstrapping`` of a
+        chunk-backed model is not ported yet.
+        """
+        model = cls(device=device)
+        model._keys = ['left'] if right is None else ['left', 'right']
+        loaders = {'left': left}
+        shapes = {'left': left_shape, 'right': right_shape}
+        if right is not None:
+            loaders['right'] = right
+        for k in model._keys:
+            sshape = shapes[k]
+            if sshape is None:
+                raise ValueError(
+                    'spatial shape of the %s field is required' % k)
+            sshape = ((int(sshape),) if np.isscalar(sshape)
+                      else tuple(int(x) for x in sshape))
+            model._shape[k] = (int(n_observations),) + sshape
+            model._n_observations[k] = int(n_observations)
+            model._fields_spatial_shape[k] = sshape
+            model._n_variables[k] = int(np.prod(sshape))
+            model._field_names[k] = k
+            model._no_nan_index[k] = np.ones(model._n_variables[k], bool)
+        model._chunk_loaders = loaders
+        model._analysis['is_bivariate'] = len(model._keys) == 2
+        model._analysis['method'] = model._get_method_id()
+        return model
+
+    def _is_chunk_backed(self):
+        return self._chunk_loaders is not None
+
+    def _require_resident_fields(self, what):
+        if self._is_chunk_backed():
+            raise RuntimeError(
+                '`{:}` needs the full data matrix and is not available '
+                'for chunk-backed (out-of-core) models.'.format(what))
+
+    def _stream_transform(self):
+        """``(weights, normalize)``: the column scaling every streamed pass
+        applies to a chunk-backed model's chunks."""
+        return self._stream_weights, bool(self._analysis['is_normalized'])
+
+    def _stream_inverse_colmul(self, key):
+        """A full-width per-column inverse the streamed ``original_scale``
+        applies: none here (generic weights are never undone); ``xMCA``
+        returns the coslat inverse."""
+        return None
+
+    def _conform_stream_weights(self, key, w):
+        """A chunk-backed model's weight as a scalar or a full-width
+        per-column vector (chunks carry every column; the passes drop the
+        NaN ones)."""
+        w = np.asarray(w, dtype=np.float64)
+        if w.ndim == 0:
+            return float(w)
+        if w.size == self._n_variables[key]:
+            return w.reshape(-1)
+        try:
+            return np.broadcast_to(
+                w, self._fields_spatial_shape[key]).reshape(-1).copy()
+        except ValueError:
+            raise ValueError(
+                'chunk-backed models support spatial (per-column) '
+                'weights only: weights for the {:} field must be a '
+                'scalar or broadcast to the spatial shape {:} '
+                '(got shape {:}).'.format(
+                    key, self._fields_spatial_shape[key], w.shape))
+
     # -------------------------------------------------------- preprocessing
     def apply_weights(self, left=None, right=None):
         """Multiply the packed (time, space) fields by weights that
-        broadcast against them."""
+        broadcast against them.  A chunk-backed model records a spatial
+        (per-column) weight, applied per chunk in every streamed pass;
+        repeated calls multiply."""
+        if self._is_chunk_backed():
+            for k, w in (('left', left), ('right', right)):
+                if w is None or k not in self._keys:
+                    continue
+                w = self._conform_stream_weights(k, w)
+                prev = self._stream_weights.get(k)
+                self._stream_weights[k] = w if prev is None else prev * w
+            return
         for k, w in (('left', left), ('right', right)):
             if w is None or k not in self._fields:
                 continue
@@ -340,8 +450,9 @@ class MCA:
                                                   dtype=f.dtype)
 
     def normalize(self):
-        """Divide each time series by its standard deviation."""
-        for k in self._keys:
+        """Divide each time series by its standard deviation (on a
+        chunk-backed model, by its chunk's std in every streamed pass)."""
+        for k in ([] if self._is_chunk_backed() else self._keys):
             f = self._fields[k]
             stds = np.asarray(self._field_stds[k])
             if (stds == 0).any() or np.isnan(stds).any():
@@ -412,6 +523,7 @@ class MCA:
 
     def _get_X(self, original_scale=False):
         """The packed fields on the device (complex ones materialized)."""
+        self._require_resident_fields('fields')
         self._ensure_complex_fields()
         X = dict(self._fields)
         if original_scale:
@@ -421,6 +533,7 @@ class MCA:
     def _get_X_dev(self, real=False):
         """The packed fields on the device; with ``real`` their real parts,
         and a deferred complexification stays deferred (no Z is built)."""
+        self._require_resident_fields('bootstrapping')
         if not (real and self._complexify_pending):
             self._ensure_complex_fields()
         if not real:
@@ -430,6 +543,8 @@ class MCA:
 
     def _get_fields(self, original_scale=False):
         n_obs = self._n_observations['left']
+        if self._is_chunk_backed():
+            return self._get_fields_streamed(original_scale)
         fields = {}
         for k, X in self._get_X(original_scale=original_scale).items():
             full = torch.full((n_obs, self._n_variables[k]),
@@ -438,6 +553,30 @@ class MCA:
             full[:, torch.as_tensor(self._no_nan_index[k],
                                     device=X.device)] = X
             fields[k] = _np(full).reshape(
+                (n_obs,) + tuple(self._fields_spatial_shape[k]))
+        return fields
+
+    def _get_fields_streamed(self, original_scale):
+        """A chunk-backed model's fields: the loaders read once with the
+        model's per-chunk transform, into full-size host arrays."""
+        from xmca_tpu_torch.core.streaming import streamed_fields
+        weights, normalize = self._stream_transform()
+        n_obs = self._n_observations['left']
+        fields = {}
+        for k in self._keys:
+            full = streamed_fields(
+                self._chunk_loaders[k], n_obs,
+                complexify=self._analysis['is_complex'],
+                extend=self._analysis['extend'],
+                period=self._analysis['theta_period'],
+                weights=weights.get(k), normalize=normalize,
+                original_scale=original_scale,
+                inv_colmul=(self._stream_inverse_colmul(k)
+                            if original_scale else None),
+                dtype=self._stream_dtype,
+                device=self._device)
+            full[:, ~self._no_nan_index[k]] = np.nan
+            fields[k] = full.reshape(
                 (n_obs,) + tuple(self._fields_spatial_shape[k]))
         return fields
 
@@ -462,19 +601,25 @@ class MCA:
 
     def solve(self, complexify=False, extend=False, period=1):
         """Perform the MCA / PCA, complexified (Hilbert) when
-        ``complexify=True``.
+        ``complexify=True``; with ``extend`` ('exp' or 'theta') each
+        field is forecast and backcast (``period``: the exponential
+        decay's e-folding time, or the theta method's season) before its
+        analytic signal is taken.
 
         Without ``set_solver(truncate=k)`` this is the exact dense solve
         (per-field Gram or SVD decompositions and one kernel SVD).  A
         truncated solve of fields at least as wide as they are long runs
-        the matmul-only subspace pipeline; when complexified and at most
-        ``_HILBERT_MATMUL_MAX_N`` steps long (the JAX package's branch
-        point) it folds the Hilbert operator into the real fields' Grams
-        and leaves ``Z`` to its first consumer, and longer records build
-        ``Z`` by FFT first.  Narrower fields take the exact pipeline.
+        the matmul-only subspace pipeline; when complexified without
+        extension and at most ``_HILBERT_MATMUL_MAX_N`` steps long (the
+        JAX package's branch point) it folds the Hilbert operator into the
+        real fields' Grams and leaves ``Z`` to its first consumer; longer
+        or extended records build ``Z`` first.  Narrower fields take the
+        exact pipeline.  A chunk-backed model streams (``from_chunks``).
         """
-        if extend:
-            raise _not_ported('solve(extend={!r})'.format(extend))
+        if complexify and extend:
+            _pre.check_extension(extend)
+        if self._is_chunk_backed():
+            return self._solve_streamed(complexify, extend, period)
         if not self._fields or any(f.numel() == 0
                                    for f in self._fields.values()):
             raise RuntimeError('Fields are empty. Did you forget to load '
@@ -499,7 +644,8 @@ class MCA:
             self._complexify_pending = True
         elif complexify:
             for k in self._keys:
-                self._fields[k] = _pre.complexify(self._fields[k])
+                self._fields[k] = _pre.complexify(
+                    self._fields[k], extend=extend, period=period)
 
         fields = [self._fields[k] for k in self._keys]
         if self._solver_truncate is not None:
@@ -543,6 +689,39 @@ class MCA:
                     Xl, Xr, omega, n_modes=k, n_iter=self._subspace_iters)
             totals = (float(total_cov), float(total_sq))
         return _np(s), [Vl, Vr][:len(fields)], totals
+
+    def _solve_streamed(self, complexify, extend, period):
+        """The out-of-core solve of a chunk-backed model: each field
+        streams through the device twice (``core.streaming.streamed_mca``),
+        and the column statistics, the NaN mask, the score accumulators
+        and the Grams it returns become the model's state, so the result
+        layer runs as on an in-memory truncated solve."""
+        from xmca_tpu_torch.core.streaming import streamed_mca
+        self._analysis['is_complex'] = complexify
+        self._analysis['extend'] = extend
+        self._analysis['theta_period'] = period
+        loaders = self._chunk_loaders
+        weights, normalize = self._stream_transform()
+        res = streamed_mca(
+            loaders['left'], loaders.get('right'),
+            self._n_observations['left'], self._solver_truncate or 20,
+            complexify=complexify, extend=extend, period=period,
+            seed=self._solver_seed, n_iter=self._subspace_iters,
+            device=self._device, weights=weights, normalize=normalize)
+        self._field_means = {k: res.means[k] for k in self._keys}
+        self._field_stds = {k: res.stds[k] for k in self._keys}
+        self._no_nan_index = {k: res.keep[k] for k in self._keys}
+        self._stream_scores = dict(zip(self._keys, (res.scores_left,
+                                                    res.scores_right)))
+        # the streamed bootstrap's working set (not ported yet): the
+        # centered Grams and the pre-Hilbert scores
+        self._stream_grams = {k: res.grams[k] for k in self._keys}
+        self._stream_scores_pre = {k: res.scores_pre[k] for k in self._keys}
+        self._stream_dtype = res.grams['left'].real.dtype
+        self._install_solution(
+            res.svals, [res.V_left, res.V_right][:len(self._keys)],
+            (res.total_covariance, res.total_squared_covariance))
+        self._analysis['is_truncated'] = True
 
     def _install_solution(self, svals, Vs, totals):
         self._V = dict(zip(self._keys, Vs))
@@ -719,6 +898,17 @@ class MCA:
                 pool))[:, keep]
         return out
 
+    def _raw_scores(self, key, pool):
+        """``X V`` over the first ``pool`` modes on the device: the stored
+        field projected through its singular vectors, or the score
+        accumulator a chunk-backed solve filled (its data is not
+        resident)."""
+        V = self._basis()[key][:, :pool]
+        if self._is_chunk_backed():
+            return self._stream_scores[key][:, :pool]
+        self._ensure_complex_fields()
+        return self._fields[key] @ V
+
     def _get_U(self, n=None, rotated=True):
         """PC time series: the stored fields projected through the
         singular vectors, whitened by sqrt(s) (and mixed through R^-T
@@ -726,18 +916,16 @@ class MCA:
         pool = self._mode_pool(n, rotated)
         keep = self._get_slice(n)
         _, whiten = self._rotation_weights(pool)
-        self._ensure_complex_fields()
-        basis = self._basis()
         out = {}
         for k in self._keys:
-            X, V = self._fields[k], basis[k]
-            w = _host_to(whiten, V, real=True)
+            XV = self._raw_scores(k, pool)
+            w = _host_to(whiten, XV, real=True)
             if rotated:
                 R_it = self.rotation_matrix(inverse_transpose=True)
-                S = _scores_rotated(X, V, w, _host_to(R_it, V),
-                                    self._order(), pool)
+                S = _scores_rotated(XV, w, _host_to(R_it, XV),
+                                    self._order())
             else:
-                S = _scores(X, V, w, pool)
+                S = _scores(XV, w)
             out[k] = _np(S)[:, keep]
         return out
 
@@ -890,7 +1078,10 @@ class MCA:
     def _correlation_maps(self, pairs, n, phase_shift):
         """Correlation maps field-vs-PCs for ``pairs`` of (field key,
         PC-source key): projection, rotation, phase shift, centering and
-        the (p, k) contraction on the device; p-values on the host."""
+        the (p, k) contraction on the device; p-values on the host.  A
+        chunk-backed model correlates its PCs (from the solve's score
+        accumulators) with one streamed pass over the field."""
+        from xmca_tpu_torch.core.streaming import streamed_patterns
         pool = self._mode_pool(n, True)
         keep = self._get_slice(n)
         _, whiten = self._rotation_weights(pool)
@@ -899,15 +1090,21 @@ class MCA:
             cos_p, sin_p = np.cos(phase_shift), np.sin(phase_shift)
         else:
             cos_p, sin_p = 1.0, 0.0
-        self._ensure_complex_fields()
-        basis = self._basis()
+        weights, normalize = self._stream_transform()
         r, p = {}, {}
         for key, source in pairs:
-            V = basis[source]
-            rmap = _np(_pattern(
-                self._fields[key], self._fields[source], V,
-                _host_to(whiten, V, real=True), _host_to(R_it, V),
-                self._order(), cos_p, sin_p, pool, keep))
+            XsV = self._raw_scores(source, pool)
+            Sc = _pattern_series(XsV, _host_to(whiten, XsV, real=True),
+                                 _host_to(R_it, XsV), self._order(), cos_p,
+                                 sin_p, keep)
+            if self._is_chunk_backed():
+                rmap = streamed_patterns(
+                    self._chunk_loaders[key], self._n_observations[key], Sc,
+                    torch.linalg.norm(Sc, dim=0), weights=weights.get(key),
+                    normalize=normalize, dtype=self._stream_dtype,
+                    device=self._device)[self._no_nan_index[key]]
+            else:
+                rmap = _np(_pattern(self._fields[key], Sc))
             r[key] = rmap
             p[key] = self._corr_pvalues(rmap, self._n_observations[key])
         return self._scatter_to_grid(r), self._scatter_to_grid(p)
@@ -936,9 +1133,8 @@ class MCA:
         keep = self._get_slice(mode)
         V = self._basis()[key]
         col_w, whiten = self._rotation_weights(pool)
-        self._ensure_complex_fields()
         return _reconstruct_factors(
-            self._fields[key], V, _host_to(whiten, V, real=True),
+            self._raw_scores(key, pool), V, _host_to(whiten, V, real=True),
             _host_to(self.rotation_matrix(inverse_transpose=True), V),
             _host_to(col_w, V, real=True),
             _host_to(self.rotation_matrix(), V),
@@ -1034,8 +1230,8 @@ class MCA:
             dtype = torch.promote_types(packed.dtype, basis[k].dtype)
             packed, V = packed.to(dtype), basis[k].to(dtype)
             scores = _np(_scores_rotated(
-                packed, V, _host_to(whiten, V, real=True),
-                _host_to(R_it, V), self._order(), pool))[:, :count]
+                packed @ V[:, :pool], _host_to(whiten, V, real=True),
+                _host_to(R_it, V), self._order()))[:, :count]
             scores = self._shift_phase(scores, phase_shift)
             ref = (self._get_pcs(count, 'None', phase_shift)[k]
                    if scaling in ('max', 'std') else None)
@@ -1056,6 +1252,12 @@ class MCA:
             self._singular_values = self._singular_values[:n]
             # copies, so the dropped columns' memory is freed
             self._V = {k: v[:, :n].clone() for k, v in self._V.items()}
+            if self._is_chunk_backed():
+                self._stream_scores = {
+                    k: v[:, :n].clone() for k, v in self._stream_scores.items()}
+                self._stream_scores_pre = {
+                    k: v[:, :n].clone()
+                    for k, v in self._stream_scores_pre.items()}
             self._analysis['is_truncated'] = True
             self._analysis['is_truncated_at'] = n
 
@@ -1074,6 +1276,8 @@ class MCA:
             dtype = self._surrogate_dtype
         elif spectrum == 'fast':
             dtype = torch.bfloat16
+        elif self._is_chunk_backed():
+            dtype = self._stream_dtype
         else:
             dtype = self._fields[self._keys[0]].real.dtype
         n_modes_fast = None
@@ -1182,7 +1386,11 @@ class MCA:
         ``strategy='iterative'`` runs the Winkler scheme: round ``mode``
         resamples the fields minus their reconstruction from the leading
         ``mode`` modes.  Every run resamples the model's fields afresh
-        (the reference resamples its previous resample).
+        (the reference resamples its previous resample); a model solved
+        with boundary extension re-centers, re-extends and complexifies
+        each resample.  A chunk-backed model raises: with extension the
+        JAX package's ``RuntimeError``, without it ``NotImplementedError``
+        (the streamed bootstrap is not ported yet).
         ``disable_progress`` is accepted for the JAX API; the port shows
         no progress bar.
         """
@@ -1205,7 +1413,16 @@ class MCA:
                          n_modes_max, seed, tol):
         """The bootstrap rounds on the resident fields: one for
         'standard', one per mode for 'iterative'."""
+        if self._is_chunk_backed():
+            if self._analysis['extend']:
+                raise RuntimeError(
+                    'bootstrapping of chunk-backed models solved with '
+                    'boundary extension (extend=\'exp\'/\'theta\') is not '
+                    'supported: re-solve without extend, or use an '
+                    'in-memory model.')
+            raise _not_ported('bootstrapping of a chunk-backed model')
         complexify = self._analysis['is_complex']
+        extend = self._analysis['extend'] if complexify else False
         H = None
         for mode in range(n_mode_iters):
             X_surr = self._get_X_dev(real=True)
@@ -1213,14 +1430,16 @@ class MCA:
                 # deflate the leading modes on the device
                 X_surr = {k: x - self._reconstructed_X_dev(k, mode)
                           for k, x in X_surr.items()}
-            if complexify and self._ensemble_spectrum == 'fast':
+            if (complexify and not extend
+                    and self._ensemble_spectrum == 'fast'):
                 lead = X_surr[self._keys[0]]
                 H = self._hilbert_operator(lead.shape[0], lead.dtype)
             spectra, converged = _sig.bootstrap_spectra(
                 [X_surr[k] for k in self._keys], n_runs, n_modes_max - mode,
                 axis=axis, on_left=on_left, on_right=on_right,
                 block_size=block_size, replace=replace,
-                complexify=complexify,
+                complexify=complexify, extend=extend,
+                period=self._analysis['theta_period'],
                 rotated=self._analysis['is_rotated'],
                 n_rot=self._analysis['n_rot'],
                 power=max(1, self._analysis['power']), tol=tol,

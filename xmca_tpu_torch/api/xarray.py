@@ -6,8 +6,10 @@ result comes back as a DataArray with a 1-based ``mode`` coordinate (and
 the field's own ``time``/``lat``/``lon`` coordinates).  ``save_analysis``
 writes the JAX package's on-disk format (``info.xmca`` plus netCDF files)
 and ``load_analysis`` reads it, whichever package wrote it; ``plot`` draws
-maps (cartopy when it is importable).  Works with real xarray when
-installed, else with :mod:`xmca_tpu_torch.compat.xarray_lite`.
+maps (cartopy when it is importable).  ``xMCA.from_chunks`` builds a
+chunk-backed (out-of-core) model from chunk loaders and coordinates.
+Works with real xarray when installed, else with
+:mod:`xmca_tpu_torch.compat.xarray_lite`.
 """
 import os
 
@@ -55,6 +57,34 @@ class xMCA(MCA):
         super().__init__(*[np.asarray(f.values) for f in fields],
                          device=device)
 
+    @classmethod
+    def from_chunks(cls, left, right=None, *, coords, right_coords=None,
+                    dims=('time', 'lat', 'lon'), device='cuda'):
+        """A chunk-backed (out-of-core) labeled model: ``left``/``right``
+        are chunk loaders as in :meth:`MCA.from_chunks`; ``coords`` (and
+        ``right_coords`` when the grids differ) map every dim in ``dims``
+        to its coordinate values, whose lengths give the fields' shapes.
+        Results come back labeled as the in-memory model's do."""
+        rcoords = coords if right_coords is None else right_coords
+        spatial = tuple(dims[1:])
+        model = super().from_chunks(
+            left, right,
+            n_observations=int(np.asarray(coords[dims[0]]).size),
+            left_shape=tuple(int(np.asarray(coords[d]).size)
+                             for d in spatial),
+            right_shape=tuple(int(np.asarray(rcoords[d]).size)
+                              for d in spatial) if right is not None
+            else None,
+            device=device)
+        model._field_dims = {}
+        model._field_coords = {}
+        for key, c in (('left', coords), ('right', rcoords)):
+            if key in model._keys:
+                model._field_dims[key] = tuple(dims)
+                model._field_coords[key] = {d: np.asarray(c[d])
+                                            for d in dims}
+        return model
+
     # ------------------------------------------------------------- scaling
     def _coslat_weights_full(self, k):
         """sqrt(cos(lat)) weights on the FULL grid of field `k`,
@@ -70,6 +100,13 @@ class xMCA(MCA):
     def _coslat_weights(self, k):
         """sqrt(cos(lat)) weights on the packed columns of field `k`."""
         return self._coslat_weights_full(k)[self._no_nan_index[k]]
+
+    def _stream_inverse_colmul(self, key):
+        """The coslat inverse a chunk-backed ``fields(original_scale=True)``
+        undoes (the first factor of the inverse scaling)."""
+        if self._analysis['is_coslat_corrected']:
+            return 1.0 / self._coslat_weights_full(key)
+        return None
 
     def _scale_X(self, data_dict):
         """Center / normalize / coslat-weight new data, per field."""
@@ -125,10 +162,38 @@ class xMCA(MCA):
         self._fields[k] = torch.as_tensor(
             np.ascontiguousarray(new_field), device=self._device).to(dtype)
 
+    def _weight_grid(self, k, weight):
+        """A weight evaluated on field `k`'s full spatial grid (no
+        packing): a chunk-backed model's chunks carry every column."""
+        spatial_dims = tuple(self._field_dims[k][1:])
+        coords = {d: self._field_coords[k][d] for d in spatial_dims
+                  if d in self._field_coords[k]}
+        template = xr.DataArray(np.ones(self._fields_spatial_shape[k]),
+                                dims=spatial_dims, coords=coords)
+        try:
+            w = np.asarray((template * weight).values)
+        except (ValueError, TypeError):
+            w = None
+        if w is None or w.shape != tuple(self._fields_spatial_shape[k]):
+            raise ValueError(
+                'chunk-backed models support spatial (per-column) '
+                'weights only: weights for the {:} field must '
+                'broadcast to the spatial shape {:}.'.format(
+                    k, self._fields_spatial_shape[k]))
+        return w
+
     def apply_weights(self, **weights):
         """Multiply fields by (dim-broadcast) DataArray weights: spatial
         weights as a per-column multiply on the device, any other weight
-        through :meth:`_apply_weights_host`."""
+        through :meth:`_apply_weights_host`.  A chunk-backed model records
+        spatial weights on its full grid for the streamed passes."""
+        if self._is_chunk_backed():
+            for k, weight in weights.items():
+                if k not in self._keys:
+                    raise KeyError('Key `{:}` not found. Please use `left` '
+                                   'or `right`'.format(k))
+                MCA.apply_weights(self, **{k: self._weight_grid(k, weight)})
+            return
         for k, weight in weights.items():
             if k not in self._fields:
                 raise KeyError('Key `{:}` not found. Please use `left` or '
@@ -145,6 +210,10 @@ class xMCA(MCA):
         weights = {}
         for key in self._keys:
             lat = self._field_coords[key]['lat']
+            if not _is_dataarray(lat):
+                # a chunk-backed model's coordinates are plain arrays:
+                # label the weight so it broadcasts along 'lat'
+                lat = xr.DataArray(np.asarray(lat), dims=('lat',))
             weights[key] = np.sqrt(np.cos(np.deg2rad(lat)) + 1e-6)
         self.apply_weights(**weights)
         self._analysis['is_coslat_corrected'] = True

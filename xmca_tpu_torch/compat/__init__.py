@@ -28,3 +28,11 @@ def open_dataarray(path, engine=None, **kwargs):
             pass
     from xmca_tpu_torch.compat import xarray_lite
     return xarray_lite.open_dataarray(path)
+
+
+def netcdf_chunks(path, **kwargs):
+    """Out-of-core chunk loader over a netCDF variable, for
+    ``MCA.from_chunks`` / ``xMCA.from_chunks``: see
+    :func:`xmca_tpu_torch.compat.netcdf.netcdf_chunks`."""
+    from xmca_tpu_torch.compat.netcdf import netcdf_chunks as _chunks
+    return _chunks(path, **kwargs)

@@ -1,8 +1,8 @@
 """Minimal netCDF4 (HDF5-based) single-variable reader/writer built on h5py.
 
-The port's own copy of ``xmca_tpu/compat/netcdf.py``'s reader and writer
-(the port imports nothing of the JAX package); its out-of-core chunk
-loader waits for the port's out-of-core ingestion.  netCDF4 files are
+The port's own copy of ``xmca_tpu/compat/netcdf.py``'s reader, writer and
+out-of-core chunk loader (the port imports nothing of the JAX package).
+netCDF4 files are
 HDF5 files with the dimension-scales convention, and this is the subset
 ``save_analysis``/``load_analysis`` need, on h5py alone:
 
@@ -71,6 +71,66 @@ def _dataset_dims(ds):
             label = None
         dims.append(label if label is not None else 'dim_%d' % i)
     return tuple(dims)
+
+
+def netcdf_chunks(path, *, max_chunk_bytes=256 * 2 ** 20, dtype=None,
+                  return_coords=False):
+    """Out-of-core chunk loader over a netCDF variable.
+
+    Returns ``(loader, n_observations, spatial_shape)`` for
+    :meth:`xmca_tpu_torch.array.MCA.from_chunks` /
+    :meth:`xmca_tpu_torch.xarray.xMCA.from_chunks`: ``loader()`` yields
+    ``(n_observations, p_chunk)`` slabs read lazily from disk.  The
+    variable is laid out time first (``(time, *spatial)``); slabs split
+    the leading spatial axis so each stays under ``max_chunk_bytes``.
+    ``_FillValue`` entries become NaN per slab (the streamed solve drops
+    NaN columns).  With ``return_coords=True`` the ``dims`` (names) and
+    ``coords`` (name -> values, ``arange`` where the file stores none)
+    follow, as ``xMCA.from_chunks`` takes them.
+    """
+    import h5py
+
+    with h5py.File(path, 'r') as h:
+        (_, ds), scales = _find_main_dataset(h)
+        shape = ds.shape
+        fill = ds.attrs.get('_FillValue', None)
+        dims = _dataset_dims(ds)
+        coords = {}
+        if return_coords:
+            for i, d in enumerate(dims):
+                if d in scales and scales[d].shape != ():
+                    coords[d] = np.asarray(scales[d][()])
+                else:
+                    coords[d] = np.arange(shape[i])
+    if len(shape) < 2:
+        raise ValueError(
+            'netcdf_chunks needs a (time, *spatial) variable; '
+            'got shape {:}'.format(shape))
+    n_obs = int(shape[0])
+    spatial_shape = tuple(int(s) for s in shape[1:])
+    out_dtype = np.dtype(dtype) if dtype is not None else None
+    inner = int(np.prod(spatial_shape[1:], dtype=np.int64)) or 1
+    itemsize = (out_dtype or np.dtype(np.float64)).itemsize
+    rows = max(1, int(max_chunk_bytes // (n_obs * inner * itemsize)))
+
+    def loader():
+        with h5py.File(path, 'r') as h:
+            (_, ds), _scales = _find_main_dataset(h)
+            for s in range(0, spatial_shape[0], rows):
+                slab = np.asarray(ds[:, s:s + rows])
+                # mask at the file's dtype: after a cast the equality
+                # with the stored _FillValue could not match
+                if (fill is not None
+                        and np.issubdtype(slab.dtype, np.floating)
+                        and not np.isnan(fill)):
+                    slab = np.where(slab == fill, np.nan, slab)
+                if out_dtype is not None:
+                    slab = slab.astype(out_dtype)
+                yield slab.reshape(n_obs, -1)
+
+    if return_coords:
+        return loader, n_obs, spatial_shape, dims, coords
+    return loader, n_obs, spatial_shape
 
 
 def read_dataarray(path):

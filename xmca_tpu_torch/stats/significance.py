@@ -22,7 +22,9 @@ same inputs.
 
 Bootstrapping resamples the model's own (centered, preprocessed) fields
 in moving blocks and solves each resample with :func:`_surrogate_variance`
-(the fast chol/subspace pipeline or the exact one).  Each run draws its
+(the fast chol/subspace pipeline or the exact one); a model solved with
+boundary extension re-centers, re-extends and complexifies each
+resample first.  Each run draws its
 block indices, then its subspace start block, from a CPU
 ``torch.Generator`` seeded with its run seed, so the card and the CPU
 resample identically.  The JAX package's vmapped batches are XLA
@@ -272,8 +274,9 @@ def _block_indices(generator, n_total, block_size, replace):
 
 def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
                       on_right=False, block_size=1, replace=True,
-                      complexify=False, rotated=False, n_rot=0, power=1,
-                      tol=1e-8, method='gram', seed=None, spectrum='exact',
+                      complexify=False, extend=False, period=1,
+                      rotated=False, n_rot=0, power=1, tol=1e-8,
+                      method='gram', seed=None, spectrum='exact',
                       subspace_iters=12, hilbert_H=None):
     """One round of (moving-block) bootstrap spectra of ``fields``.
 
@@ -283,7 +286,9 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     fields when both are.  It then solves (and rotates) the resample with
     :func:`_surrogate_variance` and the convergence-gated polar.
     ``hilbert_H`` is the model's Hilbert operator (the fast complexified
-    spectrum needs it).
+    spectrum without extension needs it).  With ``complexify`` and
+    ``extend`` ('exp'/'theta', ``period``) each resample is re-centered,
+    extended and complexified, then solved as complex fields.
 
     Returns ``(spectra (n_runs, n_out_modes), converged (n_runs,))`` as
     numpy; the rows of non-converged runs are to be dropped.
@@ -340,12 +345,17 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     for s in run_seeds(seed, n_runs):
         gen = torch.Generator().manual_seed(s)
         fs = resample(gen, list(fields))
+        cplx = complexify
+        if complexify and extend:
+            fs = [_complexify(f - f.mean(dim=0), extend=extend,
+                              period=period) for f in fs]
+            cplx = False
         omega = None
         if spectrum == 'fast':
             k = n_rot if rotated else n_out_modes
             omega = _fast.start_block(n_obs, k, real, gen).to(device)
         var, _, conv = _surrogate_variance(
-            fs, complexify, rotated, n_rot, power, tol, method,
+            fs, cplx, rotated, n_rot, power, tol, method,
             spectrum=spectrum, n_modes_fast=n_out_modes,
             subspace_iters=subspace_iters, omega=omega, hilbert_H=hilbert_H,
             # resamples of REAL data can have a large mode-variance
