@@ -87,11 +87,22 @@
    streamed pass's wall and rate;
 14. ``extend_small`` and ``stream_small``: extended and chunk-backed models
    at 256 x 2 x 512 on the card and on the CPU;
-15. ``wide_stream_path``: two 2000 x (1800 x 3600) f32 fields, 103.7 GB in
+15. ``stream_boot_path``: ``bootstrapping`` of stream_path's 16384-column
+   chunk-backed model (standard and iterative on the time axis against
+   the in-memory model run for run; the space axis with both fields and
+   with the right one), each phase's passes a field counted by its
+   loaders; ``stream_boot_small``: chunk-backed bootstraps at 256 x 2 x
+   512 on the card and on the CPU;
+16. ``wide_stream_path``: two 2000 x (1800 x 3600) f32 fields, 103.7 GB in
    all, streamed through the 80 GB card by ``MCA.from_chunks`` ->
    ``normalize`` -> ``solve(complexify=True)`` -> ``rotate(10)``, built of
    25 sign-flipped copies of one block each, so its Grams, spectrum and
-   EOF tiles have exact references; its solve's peak device memory.
+   EOF tiles have exact references; its solve's peak device memory; and
+   its bootstrap: the unrotated time axis (no pass) against the n x n
+   reduction of 25 x B's Gram, the rotated time axis (one pass a field)
+   against B's tile under each run's rotation, the space axis (two
+   passes a field) with each run's counts-weighted Gram against B's in
+   memory.
 
 Any failure exits non-zero; nothing is caught.  The last lines are the
 kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
@@ -2055,7 +2066,8 @@ def stream_path(torch, m, m_exp, left, right, card):
     then with ``extend='exp'``; each against the in-memory model of the
     same path (``m``, ``m_exp``); the counters reset just before each
     model is built and read just after its ``rule_n``.  Returns the peak
-    device memory of the 16384-column solve (GB above the resident)."""
+    device memory of the 16384-column solve (GB above the resident), that
+    model (``stream_boot_path`` bootstraps it) and the host arrays."""
     import numpy as np
     from xmca_tpu_torch.ops import _build
     from xmca_tpu_torch.xarray import xMCA
@@ -2064,7 +2076,7 @@ def stream_path(torch, m, m_exp, left, right, card):
     gb = arrays[0].nbytes / 1e9
     ref_nulls = {None: _vals(m.rule_n(N_EXT_RUNS, seed=SEED)),
                  'exp': _vals(m_exp.rule_n(N_EXT_RUNS, seed=SEED))}
-    solve_peak = None
+    solve_peak = kept = None
     for width, extend in ((STREAM_CHUNKS[0], False), (STREAM_CHUNKS[1], False),
                           (STREAM_CHUNKS[0], 'exp')):
         ref = m_exp if extend else m
@@ -2102,9 +2114,227 @@ def stream_path(torch, m, m_exp, left, right, card):
         _check(all(errs[k] <= STREAM_TOL[k] for k in STREAM_TOL),
                '{}: the chunk-backed model differs: {}'.format(label, errs))
         if solve_peak is None:
-            solve_peak = peak
+            solve_peak, kept = peak, ms
         del ms
-    return solve_peak
+    return solve_peak, kept, arrays
+
+
+def _catch(module, name, store, keep=lambda args, out: (args, out)):
+    """Wrap ``module.name`` so that ``keep(args, result)`` of each call is
+    appended to ``store``; returns what puts the function back."""
+    inner = getattr(module, name)
+
+    def caught(*args, **kw):
+        out = inner(*args, **kw)
+        store.append(keep(args, out))
+        return out
+    setattr(module, name, caught)
+    return lambda: setattr(module, name, inner)
+
+
+# A bootstrap run's varimax stops once its criterion changes by less than
+# 100 f32 eps (1.2e-5) a step.  The criterion is stationary at its
+# optimum, so a step there may still turn the loadings by up to
+# ~sqrt(1.2e-5) = 3.5e-3 rad, and two evaluations of the same run that
+# differ by roundoff may stop a step apart: a mode's rotated variance is
+# defined to about that times the spread of the modes it mixes.  Two
+# rotations of the same loadings are held to ROT_STOP_TOL per mode; the
+# loadings themselves are held tighter, under the one rotation matrix.
+ROT_STOP_TOL = 1e-2
+
+
+def _rotation_matrices(store):
+    """Catch each bootstrap run's rotation matrix (the varimax of
+    ``core.fastpath._rotated_variance``)."""
+    from xmca_tpu_torch.core import rotation
+    return _catch(rotation, 'promax', store, lambda args, out: out[1])
+
+
+def _variance_with(torch, L, n_left, R):
+    """The rotated variance, descending, of the sqrt(s)-scaled loading
+    stack ``L`` (``n_left`` rows of the left field) under the rotation
+    ``R``, as ``core.fastpath._rotated_variance`` forms it."""
+    Lr = L @ R
+    v = (torch.linalg.norm(Lr[:n_left], dim=0)
+         * torch.linalg.norm(Lr[n_left:], dim=0))
+    return torch.sort(v, descending=True).values
+
+
+def _field_passes(passes, before):
+    """The passes each field's loader made since ``before`` (counts per
+    field), and their walls."""
+    return ({k: len(v) - before[k] for k, v in passes.items()},
+            {k: v[before[k]:] for k, v in passes.items()})
+
+
+def _print_boot_passes(label, walls, gb):
+    print('{} passes ({:.3f} GB a field): {}'.format(label, gb, ', '.join(
+        '{} {}'.format(k, ', '.join('{:.3f} s ({:.2f} GB/s)'.format(
+            sec, gb / sec) for sec in v) or 'none')
+        for k, v in walls.items())))
+
+
+# stream_boot_path's phases: (name, bootstrapping keywords, held against
+# the in-memory model, passes (left, right))
+STREAM_BOOT = (
+    ('standard axis=0', dict(n_runs=16, n_modes=10), True, (1, 1)),
+    ('iterative axis=0', dict(n_runs=4, n_modes=3, strategy='iterative'),
+     True, (3, 3)),
+    ('axis=1 both', dict(n_runs=4, n_modes=10, axis=1, on_left=True,
+                         on_right=True), False, (2, 2)),
+    ('axis=1 right', dict(n_runs=4, n_modes=10, axis=1, on_left=False,
+                          on_right=True), False, (1, 2)),
+)
+
+
+def stream_boot_path(torch, ms, m, arrays, card):
+    """``bootstrapping`` of stream_path's 16384-column chunk-backed model
+    (normalized, coslat, complexified, rotate(10)) with block 20 and seed
+    7, each phase of STREAM_BOOT: its passes a field counted by its
+    loaders, its walls, its peak device memory; the time-axis phases
+    against the in-memory main-path model ``m`` run for run (the same
+    draws): each streamed run's loadings under its own rotation matrix
+    against the in-memory run's loadings under that same matrix, modes
+    1-N_EOF_MODES within STREAM_TOL['variance'], and each model's own
+    rotated variance within ROT_STOP_TOL.  Both models rotate their runs
+    to tol 1e-8 here (the f32 floor)."""
+    import numpy as np
+    from xmca_tpu_torch.core import rotation
+    gb = arrays[0].nbytes / 1e9
+    passes = {'left': [], 'right': []}
+    ms._chunk_loaders = {k: _host_loader(torch, a, STREAM_CHUNKS[0],
+                                         passes[k])
+                         for k, a in zip(('left', 'right'), arrays)}
+    tols = [mm._ensemble_tol for mm in (ms, m)]
+    for mm in (ms, m):
+        mm.set_solver(ensemble_tol=1e-8)
+    for name, kw, vs_memory, expected in STREAM_BOOT:
+        kw = dict(kw)
+        n_runs = kw.pop('n_runs')
+        walls = {}
+        before = {k: len(v) for k, v in passes.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rots, loads = [], []
+        restore = _rotation_matrices(rots)
+        got = _timed(torch, walls, 'streamed', lambda: _vals(ms.bootstrapping(
+            n_runs, block_size=BOOT_BLOCK, seed=SEED, **kw)))
+        restore()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        counts, pass_walls = _field_passes(passes, before)
+        line = ''
+        if vs_memory:
+            restore = _catch(rotation, 'promax', loads,
+                             lambda args, out: args[0])
+            ref = _timed(torch, walls, 'in memory', lambda: _vals(
+                m.bootstrapping(n_runs, block_size=BOOT_BLOCK, seed=SEED,
+                                **kw)))
+            restore()
+            # the in-memory runs' loadings under the streamed runs'
+            # rotations, written as bootstrapping writes its rounds
+            fixed = np.zeros_like(got)
+            for j, (L, R) in enumerate(zip(loads, rots)):
+                mode, i = divmod(j, n_runs)
+                fixed[mode:, i] = _variance_with(
+                    torch, L, N_LAT * N_LON, R).cpu().numpy()[
+                        :got.shape[0] - mode]
+            caught = (len(rots), len(loads))
+            del loads
+            errs = [np.where(r != 0, np.abs(got / np.where(r != 0, r, 1) - 1),
+                             0).max(axis=1) for r in (fixed, ref)]
+            line = ('; against the in-memory model run for run, rel per mode: '
+                    'its loadings under the same rotations {} (modes 1-{} tol '
+                    '{:g}), its own rotated variance {} (tol {:g})'.format(
+                        np.array2string(errs[0], precision=2), N_EOF_MODES,
+                        STREAM_TOL['variance'],
+                        np.array2string(errs[1], precision=2), ROT_STOP_TOL))
+            _check(caught == (n_runs * (3 if kw.get('strategy') else 1),) * 2
+                   and np.array_equal(got == 0, ref == 0)
+                   and errs[0][:N_EOF_MODES].max() <= STREAM_TOL['variance']
+                   and errs[1][:N_EOF_MODES].max() <= ROT_STOP_TOL,
+                   'stream_boot_path {}: the chunk-backed model differs from '
+                   'the in-memory one: {}'.format(name, errs))
+        label = 'stream_boot_path {}'.format(name)
+        _print_walls('{} ({} runs, {} modes) at {} x 2 x {} f32; {}'.format(
+            label, n_runs, got.shape[0], N_OBS, N_LAT * N_LON, card), walls)
+        _print_boot_passes(label, pass_walls, gb)
+        print('{}: {:.4f} s a run; passes a field {}; peak device memory '
+              '{:.2f} GB above the {:.2f} GB resident; runs kept per mode {}'
+              '{}'.format(label, walls['streamed'] / n_runs, counts, peak,
+                          base / 1e9, _kept(got).tolist(), line))
+        _check(np.isfinite(got).all() and (_kept(got) == n_runs).all(),
+               '{}: runs kept per mode {} of {}'.format(
+                   label, _kept(got).tolist(), n_runs))
+        _check((counts['left'], counts['right']) == expected,
+               '{}: passes {} (expected {})'.format(label, counts, expected))
+    for mm, tol in zip((ms, m), tols):
+        mm._ensemble_tol = tol
+
+
+def stream_boot_small(torch):
+    """Chunk-backed models at 256 x 2 x 512 (100-column chunks) on the card
+    and on the CPU, each solved on its own device: bootstrapping on the
+    time axis (8 runs) and the space axis (4 runs, both fields), runs
+    rotated to tol 1e-8; the rotated variance within the small path's
+    1e-3."""
+    import numpy as np
+    from xmca_tpu_torch.xarray import xMCA
+    left, right = make_fields(256, 16, 32, seed0=83)
+    coords = {d: _vals(left.coords[d]) for d in ('time', 'lat', 'lon')}
+    arrays = [_vals(f).reshape(256, -1) for f in (left, right)]
+    out = {}
+    for device in ('cuda', 'cpu'):
+        mm = xMCA.from_chunks(*[_host_loader(torch, a, 100) for a in arrays],
+                              coords=coords, device=device)
+        mm.set_solver(truncate=4, ensemble_tol=1e-8)
+        mm.normalize()
+        mm.apply_coslat()
+        mm.solve(complexify=True)
+        mm.rotate(4)
+        out[device] = [_vals(mm.bootstrapping(8, n_modes=4, block_size=16,
+                                              seed=SEED)),
+                       _vals(mm.bootstrapping(4, n_modes=4, axis=1,
+                                              on_left=True, on_right=True,
+                                              block_size=16, seed=SEED))]
+    errs = []
+    for got, ref in zip(out['cuda'], out['cpu']):
+        _check(np.array_equal(got == 0, ref == 0) and (ref != 0).all(),
+               'stream_boot_small: card and CPU keep other runs')
+        errs.append(float(np.abs(got / ref - 1).max()))
+    print('stream_boot_small card vs CPU at 256 x 2 x 512, rel rotated '
+          'variance: axis=0 {:.2e}, axis=1 {:.2e} (tol 1e-3)'.format(*errs))
+    _check(max(errs) <= 1e-3, 'stream_boot_small: card and CPU disagree')
+
+
+def _wide_axis0_reference(torch, grams, p, H, n_iter):
+    """The time-axis bootstrap's n x n reduction of ``grams`` (left,
+    right) for the N_BOOT runs of seed SEED, each run's indices and start
+    block drawn as the port draws them: the left Gram resampled (the
+    default ``on_left=True, on_right=False``), both re-centered, folded,
+    jittered at the width ``p`` and factored, the kernel's N_ROT singular
+    values.  Returns them and each run's largest condition number of its
+    two folded Grams."""
+    import numpy as np
+    from xmca_tpu_torch.core import fastpath as fp
+    from xmca_tpu_torch.core.streaming import _fold_jitter
+    from xmca_tpu_torch.stats.significance import _block_indices, run_seeds
+    from xmca_tpu_torch.stats.streaming_boot import _center_gram
+    eps = fp._eps(torch.float32)
+    svals, kappa = [], []
+    for s in run_seeds(SEED, N_BOOT):
+        gen = torch.Generator().manual_seed(s)
+        idx = _block_indices(gen, N_OBS, BOOT_BLOCK, True).cuda()
+        omega = fp.start_block(N_OBS, N_ROT, torch.float32, gen).cuda()
+        folded = [_fold_jitter(_center_gram(g), H, p, 1e-6, eps, True)
+                  for g in (grams[0][idx][:, idx], grams[1])]
+        La, Lb = (fp._cholesky(f) for f in folded)
+        _, sv, _ = fp.subspace_svd(La.mH @ Lb / (N_OBS - 1), omega, k=N_ROT,
+                                   n_iter=n_iter)
+        svals.append(sv)
+        ev = [torch.linalg.eigvalsh(f) for f in folded]
+        kappa.append(max(float(e[-1] / e[0]) for e in ev))
+    return torch.stack(svals).cpu().numpy(), np.asarray(kappa)
 
 
 def wide_stream_path(torch, card, peak_800mb):
@@ -2116,7 +2346,10 @@ def wide_stream_path(torch, card, peak_800mb):
     seeded sign, so every pass reads the same host arrays.  Exact gates:
     the streamed Grams are 25 x B's; the spectrum and totals are the port's
     n x n reduction of that Gram at the full width; tile j's unrotated and
-    rotated EOFs are its sign times tile 0's."""
+    rotated EOFs are its sign times tile 0's.  Its bootstrap runs between
+    the solve and the rotation (``wide_boot_time``) and after it
+    (``wide_boot_rotated``, ``wide_boot_space``), with B in memory as the
+    reference."""
     import numpy as np
     from xmca_tpu_torch.api.array import MCA
     from xmca_tpu_torch.core import streaming as st
@@ -2134,7 +2367,7 @@ def wide_stream_path(torch, card, peak_800mb):
     signs = [np.random.default_rng(73 + i).choice([-1, 1], WIDE_TILES)
              for i in range(2)]
     signs[0][0] = signs[1][0] = 1
-    passes = []
+    passes = {'left': [], 'right': []}
 
     def loader(i):
         def chunks():
@@ -2142,7 +2375,7 @@ def wide_stream_path(torch, card, peak_800mb):
             for s in signs[i]:
                 yield blocks[i] if s > 0 else negs[i]
             torch.cuda.synchronize()
-            passes.append(time.perf_counter() - t0)
+            passes[('left', 'right')[i]].append(time.perf_counter() - t0)
         return chunks
 
     # B in memory: its centered, normalized Gram and its own solve
@@ -2165,15 +2398,18 @@ def wide_stream_path(torch, card, peak_800mb):
     ms.set_solver(truncate=N_ROT)
     _timed(torch, walls, 'streamed solve', lambda: ms.solve(complexify=True))
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-    _timed(torch, walls, 'rotate', lambda: ms.rotate(N_ROT))
-    rot_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-
+    solve_passes = [passes[k][i] for i in (0, 1) for k in ('left', 'right')]
+    gb = p * N_OBS * 4 / 1e9
     # the n x n reduction of 25 x B's Gram at the full width
     gram_err = max(float(torch.linalg.norm(ms._stream_grams[k]
                                            - WIDE_TILES * g)
                          / torch.linalg.norm(WIDE_TILES * g))
                    for k, g in zip(('left', 'right'), grams_b))
     H = hilbert_operator(N_OBS, torch.float32, 'cuda')
+    wide_boot_time(torch, ms, grams_b, gram_err, H, p, passes, gb, card)
+    torch.cuda.reset_peak_memory_stats()
+    _timed(torch, walls, 'rotate', lambda: ms.rotate(N_ROT))
+    rot_peak = max(peak, (torch.cuda.max_memory_allocated() - base) / 1e9)
 
     def reduction(grams):
         """The n x n reduction the streamed solve runs, of ``grams``:
@@ -2203,6 +2439,8 @@ def wide_stream_path(torch, card, peak_800mb):
     # noise modes and the totals (sums over every singular value) may
     # move that far between two f32 evaluations of the same Gram
     red_tol = max(1e-4, kappa * gram_err)
+    wide_boot_rotated(torch, ms, mb, passes, gb, card)
+    wide_boot_space(torch, ms, mb, passes, gb, card)
     del grams_b, mb
     # tile j's EOFs are s_j times tile 0's (rows 72 j .. 72 j + 71)
     rows = tile // grid[1]
@@ -2218,12 +2456,11 @@ def wide_stream_path(torch, card, peak_800mb):
                     np.abs(e[j * rows:(j + 1) * rows] - signs[i][j] * e0)
                     .max() / scale))
         del eofs
-    gb = p * N_OBS * 4 / 1e9
     _print_walls('wide_stream_path at {} x 2 x {} ({} x {} cells) f32, {:.1f} '
                  'GB a field, {:.1f} GB in all; {}'.format(
                      N_OBS, p, grid[0], grid[1], gb, 2 * gb, card), walls)
     _print_passes('wide_stream_path passes ({:.1f} GB a field)'.format(gb),
-                  passes, gb)
+                  solve_passes, gb)
     print('wide_stream_path: streamed solve peak device memory {:.2f} GB '
           'above the {:.2f} GB resident (B in memory; tol {:g} GB; the '
           '800 MB fields\' streamed solve: {:.2f} GB), through rotate {:.2f} '
@@ -2256,7 +2493,181 @@ def wide_stream_path(torch, card, peak_800mb):
     _check(ms._analysis['is_rotated'] and np.isfinite(s_wide).all()
            and np.isfinite(_vals(ms.variance())).all(),
            'wide path: not rotated or non-finite results')
-    return {'walls': walls, 'peak_gb': peak, 'passes': passes}
+    return {'walls': walls, 'peak_gb': peak, 'passes': solve_passes}
+
+
+WIDE_BOOT_ROT = 4    # rotated time-axis runs on the wide record: cut for
+WIDE_BOOT_SPACE = 2  # time only, as the space-axis runs
+
+
+def _wide_boot(torch, ms, passes, n_runs, **kw):
+    """One ``bootstrapping(n_runs, n_modes=N_ROT, block_size=BOOT_BLOCK,
+    seed=SEED, **kw)`` of the wide model: ``(result, wall, passes a field,
+    pass walls, peak GB above the resident, resident GB)``; the peak
+    device memory in all must stay below the card's."""
+    before = {k: len(v) for k, v in passes.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    got = _timed(torch, walls, 'run', lambda: _vals(ms.bootstrapping(
+        n_runs, n_modes=N_ROT, block_size=BOOT_BLOCK, seed=SEED, **kw)))
+    top = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    _check(top < card_bytes, 'the wide bootstrap took {:.2f} GB of the '
+           'card\'s {:.2f} GB'.format(top / 1e9, card_bytes / 1e9))
+    counts, pass_walls = _field_passes(passes, before)
+    return got, walls['run'], counts, pass_walls, (top - base) / 1e9, \
+        base / 1e9
+
+
+def _print_wide_boot(label, n_runs, wall, counts, pass_walls, gb, peak, base,
+                     card, line):
+    print('{} ({} runs) at {} x 2 x {} f32: {:.3f} s, {:.3f} s a run; '
+          'passes a field {}; peak device memory {:.2f} GB above the {:.2f} '
+          'GB resident; {}; {}'.format(
+              label, n_runs, N_OBS, WIDE_TILES * WIDE_LAT * WIDE_LON, wall,
+              wall / n_runs, counts, peak, base, line, card))
+    _print_boot_passes(label, pass_walls, gb)
+
+
+def wide_boot_time(torch, ms, grams_b, gram_err, H, p, passes, gb, card):
+    """``bootstrapping(N_BOOT, n_modes=10)`` of the unrotated wide model:
+    the time axis in Gram space, no pass over the data; each run against
+    the same n x n reduction of 25 x B's Gram (its own indices and start
+    block), modes 1-N_EOF_MODES within 1e-4 and every mode within
+    max(1e-4, the run's condition number x the Grams' difference), the
+    bounds of the wide solve."""
+    import numpy as np
+    label = 'wide_stream_path bootstrap, unrotated time axis'
+    got, wall, counts, pass_walls, peak, base = _wide_boot(
+        torch, ms, passes, N_BOOT)
+    ref, kappa = _wide_axis0_reference(
+        torch, [WIDE_TILES * g for g in grams_b], p, H, ms._subspace_iters)
+    err = np.abs(got.T / ref - 1)
+    bound = np.maximum(1e-4, kappa * gram_err)
+    _print_wide_boot(label, N_BOOT, wall, counts, pass_walls, gb, peak, base,
+                     card, 'against the n x n reduction of {} x B\'s '
+                     'resampled Gram: modes 1-{} rel {:.2e} (tol 1e-4), each '
+                     'mode\'s max over the runs {} (tol per run: max(1e-4, '
+                     'condition number {:.3e}-{:.3e} x {:.2e}))'.format(
+                         WIDE_TILES, N_EOF_MODES,
+                         err[:, :N_EOF_MODES].max(),
+                         np.array2string(err.max(axis=0), precision=2),
+                         kappa.min(), kappa.max(), gram_err))
+    _check(counts == {'left': 0, 'right': 0},
+           '{}: passes {} (expected none)'.format(label, counts))
+    _check(np.isfinite(got).all() and (_kept(got) == N_BOOT).all(),
+           '{}: runs kept {}'.format(label, _kept(got).tolist()))
+    _check(err[:, :N_EOF_MODES].max() <= 1e-4
+           and (err.max(axis=1) <= bound).all(),
+           '{}: differs from 25 x B\'s reduction: {}'.format(label, err))
+
+
+def wide_boot_rotated(torch, ms, mb, passes, gb, card):
+    """``bootstrapping(WIDE_BOOT_ROT, n_modes=10)`` of the rotated wide
+    model in one batch (``set_solver(batch_size=4)``), runs rotated to
+    tol 1e-8 (the f32 floor): one projection pass a field.  Reference: B's
+    own tile projected against the same runs' weights (caught as the
+    bootstrap hands them to its projection).  The wide loading stack is
+    25 copies of the tile's, each row times +-1: the varimax criterion is
+    invariant to a row's sign and 25 times the tile's, so the rotation is
+    the tile's, each column norm sqrt(25) times the tile's, and the
+    variance (left norm x right norm) 25 times the tile's.  Under each
+    run's own rotation matrix (caught) modes 1-N_EOF_MODES within 1e-4;
+    the tile rotated on its own within ROT_STOP_TOL (its stopping point
+    moves with roundoff)."""
+    import numpy as np
+    from xmca_tpu_torch.core import fastpath as fp
+    from xmca_tpu_torch.stats import streaming_boot as sb
+    label = 'wide_stream_path bootstrap, rotated time axis'
+    tol = ms._ensemble_tol
+    ms.set_solver(batch_size=WIDE_BOOT_ROT, ensemble_tol=1e-8)
+    caught, rots = [], []
+    restore = [_catch(sb, '_project_and_rotate', caught),
+               _rotation_matrices(rots)]
+    got, wall, counts, pass_walls, peak, base = _wide_boot(
+        torch, ms, passes, WIDE_BOOT_ROT)
+    for put_back in restore:
+        put_back()
+    (su, s_b, Y_b), _ = caught[0]
+    tile = WIDE_LAT * WIDE_LON
+    fixed, own = [], []
+    for r, s in enumerate(s_b):
+        V = [fp.combine_analytic_projection(mb._fields[k].T @ Y_b[k][r])
+             for k in ('left', 'right')]
+        L = torch.cat(V) * torch.sqrt(s).to(V[0].dtype)[None, :]
+        fixed.append(WIDE_TILES * _variance_with(torch, L, tile, rots[r]))
+        v, _, _ = fp._rotated_variance(V[0], V[1], s, su.power, su.tol,
+                                       'ns-gated')
+        own.append(WIDE_TILES * v)
+    errs = [np.abs(got.T / torch.stack(r).cpu().numpy() - 1)
+            for r in (fixed, own)]
+    _print_wide_boot(label, WIDE_BOOT_ROT, wall, counts, pass_walls, gb,
+                     peak, base, card, 'against {} x the variance of B\'s '
+                     'tile under each run\'s rotation: per mode rel {} '
+                     '(modes 1-{} tol 1e-4); against {} x the tile rotated '
+                     'on its own: {} (tol {:g})'.format(
+                         WIDE_TILES, np.array2string(errs[0].max(axis=0),
+                                                     precision=2),
+                         N_EOF_MODES, WIDE_TILES,
+                         np.array2string(errs[1].max(axis=0), precision=2),
+                         ROT_STOP_TOL))
+    _check(counts == {'left': 1, 'right': 1},
+           '{}: passes {} (expected 1 a field)'.format(label, counts))
+    _check(len(caught) == 1 and len(rots) == WIDE_BOOT_ROT
+           and np.isfinite(got).all()
+           and (_kept(got) == WIDE_BOOT_ROT).all(),
+           '{}: batches {}, runs kept {}'.format(label, len(caught),
+                                                 _kept(got).tolist()))
+    _check(errs[0][:, :N_EOF_MODES].max() <= 1e-4
+           and errs[1][:, :N_EOF_MODES].max() <= ROT_STOP_TOL,
+           '{}: differs from 25 x the tile\'s: {}'.format(label, errs))
+    ms._ensemble_tol = tol
+
+
+def wide_boot_space(torch, ms, mb, passes, gb, card):
+    """``bootstrapping(WIDE_BOOT_SPACE, n_modes=10, axis=1, on_left=True,
+    on_right=True)`` of the rotated wide model: a counts pass and a
+    projection pass a field.  Each run's counts-weighted Gram (caught as
+    the counts pass returns it) against the in-memory ``sum_j B_n
+    diag(c_rj) B_n^T`` of its counts (tile j's are c_rj; the signs drop
+    out, so it is ``B_n diag(sum_j c_rj) B_n^T`` for each field), rel
+    Frobenius within 1e-5."""
+    import numpy as np
+    from xmca_tpu_torch.stats import streaming_boot as sb
+    label = 'wide_stream_path bootstrap, space axis (both fields)'
+    tile = WIDE_LAT * WIDE_LON
+    p = WIDE_TILES * tile
+    caught = []
+    restore = _catch(sb, '_counts_gram_pass', caught)
+    got, wall, counts, pass_walls, peak, base = _wide_boot(
+        torch, ms, passes, WIDE_BOOT_SPACE, axis=1, on_left=True,
+        on_right=True)
+    restore()
+    (_, _, c), G = caught[0]
+    errs = []
+    for r in range(c.shape[0]):
+        ref = sum((B * c[r, f * p:(f + 1) * p].view(WIDE_TILES, tile)
+                   .sum(dim=0)) @ B.T
+                  for f, B in enumerate((mb._fields['left'],
+                                         mb._fields['right'])))
+        errs.append(float(torch.linalg.norm(G[r] - ref)
+                          / torch.linalg.norm(ref)))
+    _print_wide_boot(label, WIDE_BOOT_SPACE, wall, counts, pass_walls, gb,
+                     peak, base, card, 'each counts-weighted Gram (the left '
+                     'and the right resample of each run) vs sum_j B_n '
+                     'diag(c_rj) B_n^T rel Frobenius {} (tol 1e-5); rotated '
+                     'variance {}'.format(
+                         np.array2string(np.asarray(errs), precision=2),
+                         np.array2string(got[:, 0], precision=4)))
+    _check(counts == {'left': 2, 'right': 2},
+           '{}: passes {} (expected 2 a field)'.format(label, counts))
+    _check(len(caught) == 1 and len(errs) == 2 * WIDE_BOOT_SPACE
+           and max(errs) <= 1e-5,
+           '{}: counts-weighted Grams differ: {}'.format(label, errs))
+    _check(np.isfinite(got).all() and (_kept(got) == WIDE_BOOT_SPACE).all(),
+           '{}: runs kept {}'.format(label, _kept(got).tolist()))
 
 
 def _small_pair(torch, build):
@@ -2402,8 +2813,9 @@ def main():
     saveload_path(torch, m, left, right, card)
     ens = ensemble_path(torch, m, null, card)
     m_exp = extend_path(torch, left, right, card)
-    stream_peak = stream_path(torch, m, m_exp, left, right, card)
-    del m, m_exp, left, right
+    stream_peak, ms, arrays = stream_path(torch, m, m_exp, left, right, card)
+    stream_boot_path(torch, ms, m, arrays, card)
+    del m, m_exp, ms, arrays, left, right
     torch.cuda.empty_cache()
 
     # the same path small, on the card and on the CPU (plain versions,
@@ -2433,6 +2845,7 @@ def main():
     ensemble_small(torch)
     extend_small(torch)
     stream_small(torch)
+    stream_boot_small(torch)
     long_k1, long_k2, _ = long_path(torch, card)
     torch.cuda.empty_cache()
     wide_stream_path(torch, card, stream_peak)

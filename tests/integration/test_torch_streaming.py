@@ -14,9 +14,9 @@ chunk-backed model is held against
   alignment (the packages draw different start blocks; the subspace
   iteration converges past both).
 
-Bootstrapping a chunk-backed model raises: JAX's ``RuntimeError`` when it
-was solved with extension, ``NotImplementedError`` otherwise (the
-streamed bootstrap is the next slice).
+Bootstrapping a chunk-backed model solved with extension raises JAX's
+``RuntimeError``; the streamed bootstrap itself is held by
+``test_torch_streaming_boot.py``.
 """
 import os
 
@@ -524,9 +524,10 @@ def test_streamed_extend_matches_in_memory(disk_fields, extend, period):
 
 
 @pytest.mark.parametrize('extend', ['exp', False])
-def test_streamed_bootstrap_refused(disk_fields, extend):
-    """JAX's ``RuntimeError`` for an extended chunk-backed model; the
-    port's ``NotImplementedError`` (ROADMAP queue 1) for any other."""
+def test_streamed_bootstrap_runs_unless_extended(disk_fields, extend):
+    """JAX's ``RuntimeError`` for an extended chunk-backed model; any other
+    bootstraps (``tests/integration/test_torch_streaming_boot.py`` holds
+    its results)."""
     m = _from_chunks(MCA, disk_fields, 128, right=False, device=DEV)
     m.set_solver(truncate=K)
     m.solve(complexify=True, extend=extend)
@@ -540,8 +541,8 @@ def test_streamed_bootstrap_refused(disk_fields, extend):
             m.bootstrapping(2, n_modes=2)
         assert str(got.value) == str(ref.value)
     else:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md, queue 1'):
-            m.bootstrapping(2, n_modes=2)
+        out = m.bootstrapping(2, n_modes=2)
+        assert out.shape == (2, 2) and np.isfinite(out).all()
 
 
 def test_streamed_xmca_wraps_labeled_results(disk_fields):

@@ -12,9 +12,10 @@ construction (``'cuda'`` by default); every product runs there and only a
 getter's final result is copied to numpy.  ``solve(complexify=True,
 extend='exp'|'theta')`` complexifies with boundary extension, and
 ``MCA.from_chunks`` builds a chunk-backed (out-of-core) model whose data
-streams through the device (``core.streaming``).  What the port does not
-implement yet (a device mesh, bootstrapping a chunk-backed model) raises
-``NotImplementedError`` instead of running something else.
+streams through the device (``core.streaming``; its bootstrap:
+``stats.streaming_boot``).  What the port does not implement yet (a
+device mesh) raises ``NotImplementedError`` instead of running something
+else.
 
 The Monte-Carlo methods run the accelerator configuration of the JAX
 package on every device (its branch for ``jax.default_backend() ==
@@ -284,9 +285,12 @@ class MCA:
         'rademacher1') and ``surrogate_dtype`` (the 'draw' fields' dtype:
         a torch or numpy dtype or its name) pick Rule-N's surrogates;
         ``rule_n`` tables what each unset key resolves to.
-        ``batch_size``, ``runs_per_dispatch``: accepted and stored, with
-        no effect: the port runs one ensemble run at a time, and the
-        results do not depend on them in the JAX package either.
+        ``batch_size``: the runs of a chunk-backed model's bootstrap batch,
+        each batch one set of passes over the loaders (default: 16 runs);
+        elsewhere, as ``runs_per_dispatch`` everywhere, accepted and
+        stored with no effect: the port solves one ensemble run at a
+        time, and the results do not depend on them in the JAX package
+        either.
         ``mesh`` and another ``ensemble_axis`` are not ported and raise
         ``NotImplementedError``.
         """
@@ -358,8 +362,9 @@ class MCA:
         apply per chunk in every pass.  The getters read the score
         accumulators of the solve; ``fields``, the correlation patterns
         and ``save_analysis`` read the loaders again.  A chunk's columns
-        with a NaN are dropped, as in memory.  ``bootstrapping`` of a
-        chunk-backed model is not ported yet.
+        with a NaN are dropped, as in memory.  ``bootstrapping`` resamples
+        the solve's Grams: the time axis reads the loaders once per batch
+        of rotated runs, or not at all, the space axis once or twice.
         """
         model = cls(device=device)
         model._keys = ['left'] if right is None else ['left', 'right']
@@ -713,8 +718,8 @@ class MCA:
         self._no_nan_index = {k: res.keep[k] for k in self._keys}
         self._stream_scores = dict(zip(self._keys, (res.scores_left,
                                                     res.scores_right)))
-        # the streamed bootstrap's working set (not ported yet): the
-        # centered Grams and the pre-Hilbert scores
+        # the streamed bootstrap's working set: the centered Grams and the
+        # pre-Hilbert scores
         self._stream_grams = {k: res.grams[k] for k in self._keys}
         self._stream_scores_pre = {k: res.scores_pre[k] for k in self._keys}
         self._stream_dtype = res.grams['left'].real.dtype
@@ -1388,9 +1393,10 @@ class MCA:
         ``mode`` modes.  Every run resamples the model's fields afresh
         (the reference resamples its previous resample); a model solved
         with boundary extension re-centers, re-extends and complexifies
-        each resample.  A chunk-backed model raises: with extension the
-        JAX package's ``RuntimeError``, without it ``NotImplementedError``
-        (the streamed bootstrap is not ported yet).
+        each resample.  A chunk-backed model resamples in Gram space
+        (``stats.streaming_boot``) with the same draws as an in-memory
+        model of the same data, run for run; one solved with extension
+        raises the JAX package's ``RuntimeError``.
         ``disable_progress`` is accepted for the JAX API; the port shows
         no progress bar.
         """
@@ -1411,16 +1417,13 @@ class MCA:
     def _bootstrap_modes(self, var_surr, n_mode_iters, n_runs, strategy,
                          axis, on_left, on_right, block_size, replace,
                          n_modes_max, seed, tol):
-        """The bootstrap rounds on the resident fields: one for
-        'standard', one per mode for 'iterative'."""
+        """The bootstrap rounds on the resident fields (a chunk-backed
+        model's in :meth:`_bootstrap_modes_streamed`): one for 'standard',
+        one per mode for 'iterative'."""
         if self._is_chunk_backed():
-            if self._analysis['extend']:
-                raise RuntimeError(
-                    'bootstrapping of chunk-backed models solved with '
-                    'boundary extension (extend=\'exp\'/\'theta\') is not '
-                    'supported: re-solve without extend, or use an '
-                    'in-memory model.')
-            raise _not_ported('bootstrapping of a chunk-backed model')
+            return self._bootstrap_modes_streamed(
+                var_surr, n_mode_iters, n_runs, strategy, axis, on_left,
+                on_right, block_size, replace, n_modes_max, seed, tol)
         complexify = self._analysis['is_complex']
         extend = self._analysis['extend'] if complexify else False
         H = None
@@ -1449,6 +1452,69 @@ class MCA:
             )
             # a run whose rotation did not converge leaves its rows as
             # they were (the reference skips it)
+            var_surr[mode:, converged] = spectra[converged].T
+            if strategy == 'standard':
+                break
+
+    def _bootstrap_modes_streamed(self, var_surr, n_mode_iters, n_runs,
+                                  strategy, axis, on_left, on_right,
+                                  block_size, replace, n_modes_max, seed,
+                                  tol):
+        """The bootstrap rounds of a chunk-backed model, in Gram space
+        (``stats.streaming_boot``): the time axis resamples the stored
+        Grams (a rotated batch adds one projection pass per field), the
+        space axis makes one counts pass per batch.  An iterative round
+        deflates in mode space: the stored Grams by
+        :func:`deflated_gram`, from the pre-Hilbert score accumulators
+        ``Xc V`` mixed like the loadings (``Xc W``) and the rank-k
+        reconstruction factors; the passes deflate chunk by chunk."""
+        from xmca_tpu_torch.stats.streaming_boot import (
+            bootstrap_spectra_streamed, deflated_gram)
+        if self._analysis['extend']:
+            # the resampled rows change every boundary forecast, so an
+            # extended surrogate's Gram is no index algebra on the stored
+            # one (the JAX package's error, word for word)
+            raise RuntimeError(
+                'bootstrapping of chunk-backed models solved with '
+                'boundary extension (extend=\'exp\'/\'theta\') is not '
+                'supported: re-solve without extend, or use an '
+                'in-memory model.')
+        weights, normalize = self._stream_transform()
+        dtype = self._stream_dtype
+        n_obs = self._n_observations['left']
+        complexify = self._analysis['is_complex']
+        H = self._hilbert_operator(n_obs, dtype) if complexify else None
+        grams, pre = self._stream_grams, self._stream_scores_pre
+        pool = self._analysis['n_rot']
+        col_w, _ = self._rotation_weights(pool)
+        inv_norm = {k: 1.0 / v
+                    for k, v in self._get_norm(pool, sorted=False).items()}
+        R = self.rotation_matrix()
+        for mode in range(n_mode_iters):
+            deflate, g_iter = None, grams
+            if strategy == 'iterative' and mode > 0:
+                deflate, g_iter = {}, {}
+                for k in self._keys:
+                    S, W = self._reconstruct_factors_dev(k, mode)
+                    P = pre[k]
+                    XcW = _loadings(
+                        P, _host_to(col_w, P, real=True), _host_to(R, P),
+                        _host_to(inv_norm[k], P, real=True), self._order(),
+                        pool)[:, :mode]
+                    deflate[k] = (S, W)
+                    g_iter[k] = deflated_gram(grams[k], XcW, S, W)
+            spectra, converged = bootstrap_spectra_streamed(
+                self._chunk_loaders, self._no_nan_index, g_iter, n_obs,
+                n_runs, n_modes_max - mode, weights=weights,
+                normalize=normalize, axis=axis, on_left=on_left,
+                on_right=on_right, block_size=block_size, replace=replace,
+                complexify=complexify, H=H,
+                rotated=self._analysis['is_rotated'],
+                n_rot=self._analysis['n_rot'],
+                power=max(1, self._analysis['power']), tol=tol,
+                seed=seed + mode, batch_size=self._ensemble_batch_size,
+                subspace_iters=self._subspace_iters, dtype=dtype,
+                device=self._device, deflate=deflate)
             var_surr[mode:, converged] = spectra[converged].T
             if strategy == 'standard':
                 break
