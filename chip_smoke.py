@@ -102,7 +102,16 @@
    reduction of 25 x B's Gram, the rotated time axis (one pass a field)
    against B's tile under each run's rotation, the space axis (two
    passes a field) with each run's counts-weighted Gram against B's in
-   memory.
+   memory;
+17. ``mesh_path``: the device mesh (``xmca_tpu_torch.parallel``) through
+   the JAX package's multi-device flow (``dryrun_multichip``) at the main
+   path's width: the unsharded flow, then (a) a world of one rank (NCCL,
+   mesh (1, 1)) in this process, equal to it bit for bit with exactly
+   2 x 16 and 2 x 8 launches of syrk and sign_field_sums, then (b) four
+   ranks of this script (``--mesh-rank``) sharing the card over gloo,
+   mesh (2, 2), each with half of each field's columns, held to it at
+   MESH_TOL, with exactly 2 x 8 and 2 x 4 launches a rank; each rank's
+   walls, collectives and peak memory.
 
 Any failure exits non-zero; nothing is caught.  The last lines are the
 kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
@@ -2731,6 +2740,385 @@ def stream_small(torch):
                                           ('streamed', 'exp')])
 
 
+# ---------------------------------------------------------------- mesh_path
+MESH_SHAPE = (2, 2)       # (ensemble, space): four ranks on the one card
+N_MESH_RUNS = 16          # rule_n on the mesh models: cut for time only
+N_MESH_RUNS_PM = 8        # rule_n after promax: cut for time only
+N_MESH_RUNS_GEN = 4       # 'normal16' rule_n (the field kernel): cut for
+                          # time only
+N_MESH_BOOT = 4           # bootstrap runs: cut for time only
+MESH_TIMEOUT_S = 600      # the ranks' process-group timeout and wall limit
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def mesh_flow(torch, left, right, mesh, folder):
+    """``__graft_entry__.dryrun_multichip``'s public flow at the main
+    path's width on ``mesh`` (None: the unsharded model): ``set_solver(
+    truncate=10, mesh)`` -> ``normalize`` -> ``apply_coslat`` ->
+    ``solve(complexify=True)`` -> ``rotate(10)`` -> ``rule_n(16)`` (and
+    ``rule_n(4)`` of 'normal16' fields, the field kernel's); the
+    spectrum, EOFs, PCs and rotated variance; ``bootstrapping(4)`` (tol
+    1e-8); ``rotate(10, power=4)`` -> ``rule_n(8)``; the array-level
+    save (``info.xmca`` by the writing rank) and load into a fresh model on
+    the same mesh; ``MCA.from_chunks`` over 16384-column chunks ->
+    ``solve(complexify=True)`` -> ``bootstrapping(4)``.  Returns
+    ``(results, walls, launches)``: host arrays, host seconds per stage
+    (each ending in a device synchronize) and the kernel launches of each
+    ``rule_n``."""
+    import os
+    import numpy as np
+    from xmca_tpu_torch.api.array import MCA
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.parallel import mesh as pmesh
+    from xmca_tpu_torch.xarray import xMCA
+    walls, launches, out = {}, {}, {}
+
+    def stage(name, fn):
+        return _timed(torch, walls, name, fn)
+
+    def counted(name, fn):
+        _build.reset_launch_counts()
+        res = stage(name, fn)
+        launches[name] = _counts(_build.launch_counts())
+        return res
+
+    m = stage('ingest', lambda: xMCA(left, right, device='cuda'))
+    m.set_solver(truncate=N_ROT, mesh=mesh)
+    m.normalize()
+    m.apply_coslat()
+    stage('solve', lambda: m.solve(complexify=True))
+    stage('rotate', lambda: m.rotate(N_ROT))
+    out['null'] = counted('rule_n', lambda: _vals(m.rule_n(N_MESH_RUNS,
+                                                          seed=SEED)))
+    m.set_solver(surrogate_gen_dist='normal16')
+    out['null_gen'] = counted('rule_n normal16', lambda: _vals(
+        m.rule_n(N_MESH_RUNS_GEN, seed=SEED)))
+    m.set_solver(surrogate_gen_dist='rademacher8')
+    out['svals'] = _vals(m.singular_values(N_ROT))
+    out['expvar'] = _vals(m.explained_variance(N_ROT))
+    out['var_sum'] = float(_vals(m.variance()).sum())
+    out['eofs'] = {k: _vals(v) for k, v in m.eofs(N_ROT,
+                                                  rotated=False).items()}
+    out['eofs_rot'] = {k: _vals(v) for k, v in m.eofs(N_ROT).items()}
+    out['pcs'] = {k: _vals(v) for k, v in m.pcs(N_ROT).items()}
+    m.set_solver(ensemble_tol=1e-8)
+    out['boot'] = stage('bootstrapping', lambda: _vals(m.bootstrapping(
+        N_MESH_BOOT, n_modes=N_ROT, block_size=BOOT_BLOCK, seed=SEED)))
+    stage('rotate power=4', lambda: m.rotate(N_ROT, power=4))
+    out['expvar_pm'] = _vals(m.explained_variance(N_ROT))
+    out['var_sum_pm'] = float(_vals(m.variance()).sum())
+    out['null_pm'] = counted('rule_n power=4', lambda: _vals(
+        m.rule_n(N_MESH_RUNS_PM, seed=SEED)))
+
+    def save():
+        if pmesh.is_writer(mesh):
+            m._create_info_file(folder)
+        pmesh.barrier(mesh)
+        fields = m.fields(original_scale=True)
+        return ({k: np.ascontiguousarray(_vals(f).real)
+                 for k, f in fields.items()},
+                {k: _vals(e) for k, e in m.eofs(rotated=False).items()},
+                _vals(m.singular_values()), fields)
+    fields, eofs, svals, das = stage('save (the arrays)', save)
+
+    def load():
+        lm = xMCA(device='cuda')
+        lm.set_solver(mesh=mesh)
+        lm._field_coords = {k: da.coords for k, da in das.items()}
+        lm._field_dims = {k: da.dims for k, da in das.items()}
+        MCA.load_analysis(lm, os.path.join(folder, 'info.xmca'),
+                          fields=fields, eofs=eofs, singular_values=svals)
+        if lm._analysis['is_coslat_corrected']:
+            lm.apply_coslat()
+        return lm
+    lm = stage('load', load)
+    out['loaded_svals'] = _vals(lm.singular_values(N_ROT))
+    out['loaded_eofs'] = {k: _vals(v) for k, v in lm.eofs(
+        N_ROT, rotated=False).items()}
+    del lm, m, fields, das
+    torch.cuda.empty_cache()
+
+    arrays = [np.asarray(f.values).reshape(N_OBS, -1) for f in (left, right)]
+    mc = MCA.from_chunks(
+        *[_host_loader(torch, a, STREAM_CHUNKS[0]) for a in arrays],
+        n_observations=N_OBS, left_shape=(N_LAT, N_LON),
+        right_shape=(N_LAT, N_LON), device='cuda')
+    mc.set_solver(truncate=N_ROT, mesh=mesh)
+    stage('streamed solve', lambda: mc.solve(complexify=True))
+    out['stream_svals'] = _vals(mc.singular_values(N_ROT))
+    out['stream_eofs'] = {k: _vals(v) for k, v in mc.eofs(
+        N_ROT, rotated=False).items()}
+    out['stream_boot'] = stage('streamed bootstrapping', lambda: _vals(
+        mc.bootstrapping(N_MESH_BOOT, n_modes=N_ROT, block_size=BOOT_BLOCK,
+                         seed=SEED)))
+    del mc
+    torch.cuda.empty_cache()
+    return out, walls, launches
+
+
+def _flat(out):
+    """``(name, array)`` pairs of every result of :func:`mesh_flow`."""
+    import numpy as np
+    for k, v in out.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                yield '{}[{}]'.format(k, kk), np.asarray(vv)
+        else:
+            yield k, np.asarray(v)
+
+
+def _per_run(label, walls):
+    """Walls of a mesh flow with rule_n and bootstrapping per run."""
+    w = dict(walls)
+    w['rule_n a run'] = w.pop('rule_n') / N_MESH_RUNS
+    w['rule_n normal16 a run'] = w.pop('rule_n normal16') / N_MESH_RUNS_GEN
+    w['rule_n power=4 a run'] = w.pop('rule_n power=4') / N_MESH_RUNS_PM
+    w['bootstrapping a run'] = w.pop('bootstrapping') / N_MESH_BOOT
+    w['streamed bootstrapping a run'] = (w.pop('streamed bootstrapping')
+                                         / N_MESH_BOOT)
+    _print_walls(label, w)
+
+
+def _mesh_vs(got, ref):
+    """A sharded flow's results against the unsharded one's, as
+    ``_stream_vs`` holds a chunk-backed model to an in-memory one: the
+    spectra (modes 1-N_EOF_MODES relative to the largest), unrotated EOFs
+    (aligned, modes 1-N_EOF_MODES), the rotated explained variance per
+    mode, the Rule-N nulls over the ratio of the rescaling totals, the
+    bootstrap spectra run for run per mode, and the loaded model's
+    spectrum and EOFs against its saved model's (max abs difference)."""
+    import numpy as np
+    k = N_EOF_MODES
+
+    def spectrum(a, b):
+        return _rel(np.asarray(a)[:k], np.asarray(b)[:k])
+
+    def eofs(a, b):
+        return max(_rel(_align(a[f][..., :k], b[f][..., :k]),
+                        b[f][..., :k]) for f in b)
+
+    def per_mode(a, b):
+        return float(np.abs(np.asarray(a)[:k] / np.asarray(b)[:k] - 1).max())
+
+    def null(a, b, scale):
+        if a.shape != b.shape:
+            return float('inf')
+        return float(np.abs(a / (b * scale) - 1).max())
+
+    def exact(a, b):
+        return max(float(np.nanmax(np.abs(a[f] - b[f]))) for f in b)
+
+    def boot(a, b):
+        if not np.array_equal(a == 0, b == 0):
+            return float('inf')
+        r = np.where(b != 0, np.abs(a / np.where(b != 0, b, 1) - 1), 0)
+        return float(r[:k].max())
+
+    return {
+        'svals': spectrum(got['svals'], ref['svals']),
+        'eofs': eofs(got['eofs'], ref['eofs']),
+        'variance': per_mode(got['expvar'], ref['expvar']),
+        'null': null(got['null'], ref['null'],
+                     got['var_sum'] / ref['var_sum']),
+        'null normal16': null(got['null_gen'], ref['null_gen'],
+                              got['var_sum'] / ref['var_sum']),
+        'boot': boot(got['boot'], ref['boot']),
+        'variance power=4': per_mode(got['expvar_pm'], ref['expvar_pm']),
+        'null power=4': null(got['null_pm'], ref['null_pm'],
+                             got['var_sum_pm'] / ref['var_sum_pm']),
+        'loaded svals': spectrum(got['loaded_svals'], got['svals']),
+        'loaded eofs': exact(got['loaded_eofs'], got['eofs']),
+        'streamed svals': spectrum(got['stream_svals'],
+                                   ref['stream_svals']),
+        'streamed eofs': eofs(got['stream_eofs'], ref['stream_eofs']),
+        'streamed boot': boot(got['stream_boot'], ref['stream_boot']),
+    }
+
+
+# the (2, 2) ranks' gates: _stream_vs's f32 gates for a changed summation
+# order (STREAM_TOL), the rotated variance and each rotated bootstrap run
+# per mode at ROT_STOP_TOL, the loaded model exactly as saveload_path
+MESH_TOL = {'svals': STREAM_TOL['svals'], 'eofs': STREAM_TOL['eofs'],
+            'variance': ROT_STOP_TOL, 'null': STREAM_TOL['null'],
+            'null normal16': STREAM_TOL['null'],
+            'boot': ROT_STOP_TOL, 'variance power=4': ROT_STOP_TOL,
+            'null power=4': STREAM_TOL['null'], 'loaded svals': 0.0,
+            'loaded eofs': 0.0, 'streamed svals': STREAM_TOL['svals'],
+            'streamed eofs': STREAM_TOL['eofs'],
+            'streamed boot': STREAM_TOL['svals']}
+
+
+def mesh_rank_main(rank, port, folder):
+    """One rank of mesh_path's (2, 2) mesh: a gloo process group of four
+    ranks on the card, the flow on its shards, its results pickled to
+    ``folder`` (all of them on rank 0; walls, launches, collectives and
+    peak memory on every rank).  Builds nothing: the parent built the
+    kernels."""
+    import os
+    import pickle
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from xmca_tpu_torch.parallel import mesh as pmesh
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method='tcp://localhost:%d' % port,
+                            world_size=MESH_SHAPE[0] * MESH_SHAPE[1],
+                            rank=rank,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    mesh = pmesh.make_mesh(*MESH_SHAPE)
+    left, right = make_fields(N_OBS, N_LAT, N_LON)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.reset_collective_counts()
+    out, walls, launches = mesh_flow(torch, left, right, mesh, folder)
+    res = {'walls': walls, 'launches': launches,
+           'collectives': pmesh.collective_counts(),
+           'peak_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
+           'coordinate': (pmesh.axis_rank(mesh, 'ensemble'),
+                          pmesh.axis_rank(mesh, 'space')),
+           'out': out if rank == 0 else {
+               k: out[k] for k in ('svals', 'null', 'boot', 'stream_svals')}}
+    with open(os.path.join(folder, 'rank%d.pkl' % rank), 'wb') as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _mesh_ranks(folder):
+    """Run the (2, 2) ranks as four processes of this script; any rank's
+    failure, or the wall limit, fails the smoke."""
+    import pickle
+    import os
+    port = _free_port()
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               '--mesh-rank', str(r), str(port), folder])
+             for r in range(n)]
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    _check(all(c == 0 for c in codes),
+           'mesh_path: the (2, 2) ranks exited with {}'.format(codes))
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(folder, 'rank%d.pkl' % r), 'rb') as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def mesh_path(torch, left, right, card):
+    """The device mesh (``xmca_tpu_torch.parallel``) on the one card:
+    (a) a world of one rank (NCCL, mesh (1, 1)) in this process, every
+    result of :func:`mesh_flow` equal bit for bit to the unsharded flow's
+    (a size-1 axis communicates nothing), with exactly 2 x 16 and 2 x 8
+    launches of syrk and sign_field_sums and 2 x 4 of surrogate_field;
+    (b) four ranks sharing the card over gloo, mesh (2, 2), each holding
+    half of each field's columns, held to the unsharded flow by MESH_TOL,
+    with exactly 2 x 8 and 2 x 4 launches of syrk and sign_field_sums and
+    2 x 2 of surrogate_field a rank (each run whole on its rank, the two
+    space ranks of an ensemble group running the same runs).  One card shows the
+    sharded arithmetic and each rank's cost, not scaling."""
+    import os
+    import shutil
+    import tempfile
+    from datetime import timedelta
+    import numpy as np
+    import torch.distributed as dist
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.parallel import mesh as pmesh
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix='mesh_', dir=_build.BUILD_DIR)
+    folders = {k: os.path.join(root, k) for k in ('ref', 'one', 'ranks')}
+    for f in folders.values():
+        os.makedirs(f)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_walls, ref_launches = mesh_flow(torch, left, right, None,
+                                             folders['ref'])
+    ref_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    dist.init_process_group('nccl', init_method='tcp://localhost:%d'
+                            % _free_port(), world_size=1, rank=0,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    one = pmesh.make_mesh(1, 1)
+    pmesh.reset_collective_counts()
+    torch.cuda.reset_peak_memory_stats()
+    got, walls, launches = mesh_flow(torch, left, right, one,
+                                     folders['one'])
+    one_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    one_coll = pmesh.collective_counts()
+    dist.destroy_process_group()
+    unequal = [name for (name, a), (_, b) in zip(_flat(got), _flat(ref))
+               if not np.array_equal(a, b, equal_nan=True)]
+    _per_run('mesh_path unsharded flow at {} x 2 x {} f32 (peak +{:.2f} GB); '
+             '{}'.format(N_OBS, N_LAT * N_LON, ref_peak, card), ref_walls)
+    _per_run('mesh_path (a) world of one, NCCL, mesh (1, 1) (peak +{:.2f} '
+             'GB, collectives {})'.format(one_peak, one_coll), walls)
+    print('mesh_path (a): launches {} (unsharded {}); results unequal to '
+          'the unsharded flow: {}'.format(launches, ref_launches,
+                                          unequal or 'none'))
+    _check(not unequal, 'mesh_path (a): the (1, 1) mesh differs from the '
+           'unsharded model in {}'.format(unequal))
+    for name, n_runs in (('rule_n', N_MESH_RUNS),
+                         ('rule_n power=4', N_MESH_RUNS_PM)):
+        lc = launches[name]
+        _check(lc['syrk'] == lc['sign_field_sums'] == 2 * n_runs,
+               'mesh_path (a): {} launched {}'.format(name, lc))
+    lc = launches['rule_n normal16']
+    _check(lc['surrogate_field'] == 2 * N_MESH_RUNS_GEN and lc['syrk'] == 0,
+           'mesh_path (a): rule_n normal16 launched {}'.format(lc))
+
+    t0 = time.perf_counter()
+    ranks = _mesh_ranks(folders['ranks'])
+    wall = time.perf_counter() - t0
+    errs = _mesh_vs(ranks[0]['out'], ref)
+    for r, res in enumerate(ranks):
+        _per_run('mesh_path (b) rank {} at {} of mesh {} over gloo (peak '
+                 '+{:.2f} GB; collectives {}, launches {})'.format(
+                     r, res['coordinate'], MESH_SHAPE, res['peak_gb'],
+                     res['collectives'], res['launches']), res['walls'])
+    print('mesh_path (b): 4 ranks in {:.1f} s (spawn, fields and flow); '
+          'against the unsharded flow: {}'.format(wall, ', '.join(
+              '{} {:.2e} (tol {:g})'.format(k, v, MESH_TOL[k])
+              for k, v in errs.items())))
+    bad = {k: v for k, v in errs.items() if not v <= MESH_TOL[k]}
+    _check(not bad, 'mesh_path (b): the (2, 2) mesh is off: {}'.format(bad))
+    for r, res in enumerate(ranks):
+        for k in ('svals', 'null', 'boot', 'stream_svals'):
+            _check(np.array_equal(res['out'][k], ranks[0]['out'][k]),
+                   'mesh_path (b): rank {} disagrees on {}'.format(r, k))
+        for name, n_runs in (('rule_n', N_MESH_RUNS),
+                             ('rule_n power=4', N_MESH_RUNS_PM)):
+            lc = res['launches'][name]
+            share = n_runs // MESH_SHAPE[0]
+            _check(lc['syrk'] == lc['sign_field_sums'] == 2 * share,
+                   'mesh_path (b): rank {} {} launched {} (expected 2 x {})'
+                   .format(r, name, lc, share))
+        lc = res['launches']['rule_n normal16']
+        _check(lc['surrogate_field'] == 2 * N_MESH_RUNS_GEN // MESH_SHAPE[0]
+               and lc['syrk'] == 0, 'mesh_path (b): rank {} rule_n '
+               'normal16 launched {}'.format(r, lc))
+    shutil.rmtree(root)
+    return {'ref': ref_walls, 'one': walls, 'ranks': ranks}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2815,7 +3203,10 @@ def main():
     m_exp = extend_path(torch, left, right, card)
     stream_peak, ms, arrays = stream_path(torch, m, m_exp, left, right, card)
     stream_boot_path(torch, ms, m, arrays, card)
-    del m, m_exp, ms, arrays, left, right
+    del m, m_exp, ms, arrays
+    torch.cuda.empty_cache()
+    mesh_path(torch, left, right, card)
+    del left, right
     torch.cuda.empty_cache()
 
     # the same path small, on the card and on the CPU (plain versions,
@@ -2883,4 +3274,8 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--mesh-rank']:
+        # one rank of mesh_path's four, started by mesh_path itself
+        mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

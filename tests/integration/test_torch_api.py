@@ -3,9 +3,9 @@
 * The API faults F1-F4: ``xMCA.rule_n`` / ``rule_north`` return labeled
   arrays, ``rule_n`` and ``bootstrapping`` take ``disable_progress``,
   ``solve`` raises the reference's all-NaN ``RuntimeError`` where JAX does
-  and nowhere else, and only the unported surface (a mesh, another
-  ensemble axis) raises ``NotImplementedError`` (every JAX ``set_solver``
-  key is accepted or refused, never a ``TypeError``).
+  and nowhere else, and every JAX ``set_solver`` key is accepted, as
+  JAX accepts it (a mesh and another ensemble axis are stored), or
+  refused with JAX's ``ValueError``, never a ``TypeError``.
 * ``bootstrapping``: the JAX model's solution is carried into the port
   (``utils.state``), both packages run the exact spectrum with rotation
   tolerance 1e-8, and one block spans the resampled axis, so every run
@@ -191,15 +191,16 @@ _JAX_KEYS = [('method', 'svd'), ('batch_size', 4), ('spectrum', 'exact'),
              ('runs_per_dispatch', 2)] + [
     ('surrogate_gen_dist', d) for d in ('normal16', 'normal32', 'rademacher',
                                         'rademacher8', 'rademacher1')]
-_REFUSED = dict(mesh=object(), ensemble_axis='runs')
+# stored as JAX stores them (a mesh is driven in test_torch_mesh.py)
+_STORED = dict(mesh=object(), ensemble_axis='runs')
 _INVALID = dict(method='qr', spectrum='dense', surrogate_source='file',
                 surrogate_gen_dist='uniform')
 
 
 @pytest.mark.parametrize('api', ['mca', 'xmca'])
 def test_unported_surface_raises_not_implemented(api):
-    """F4: every JAX ``set_solver`` key is accepted, but for ``mesh`` and
-    another ``ensemble_axis``, which raise ``NotImplementedError``;
+    """F4: every JAX ``set_solver`` key is accepted; ``mesh`` and
+    another ``ensemble_axis`` are stored as the JAX package stores them;
     invalid values raise JAX's ``ValueError``; ``batch_size`` and ``runs_per_dispatch`` change
     nothing; ``spectrum='exact'`` runs Rule-N (the 'draw' source) and
     bootstrapping; ``set_field_names`` is ported."""
@@ -207,9 +208,13 @@ def test_unported_surface_raises_not_implemented(api):
     arrays, coords = _arrays(2)
     for key, value in _JAX_KEYS:
         _build('torch', api, arrays, coords).set_solver(**{key: value})
-    for key, value in _REFUSED.items():
-        with pytest.raises(NotImplementedError):
-            tm.set_solver(**{key: value})
+    for key, value in _STORED.items():
+        j, t = _pair(api, 2)
+        j.set_solver(**{key: value})
+        t.set_solver(**{key: value})
+        stored = ((j._ensemble_mesh, t._mesh) if key == 'mesh'
+                  else (j._ensemble_axis, t._ensemble_axis))
+        assert stored[0] is value and stored[1] is value
     for key, value in _INVALID.items():
         with pytest.raises(ValueError) as ref:
             jm.set_solver(**{key: value})

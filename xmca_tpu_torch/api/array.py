@@ -13,9 +13,13 @@ getter's final result is copied to numpy.  ``solve(complexify=True,
 extend='exp'|'theta')`` complexifies with boundary extension, and
 ``MCA.from_chunks`` builds a chunk-backed (out-of-core) model whose data
 streams through the device (``core.streaming``; its bootstrap:
-``stats.streaming_boot``).  What the port does not implement yet (a
-device mesh) raises ``NotImplementedError`` instead of running something
-else.
+``stats.streaming_boot``).  ``set_solver(mesh=...)`` runs the model on a
+device mesh (:mod:`xmca_tpu_torch.parallel.mesh`, one process a device):
+``solve`` shards the fields' packed columns over the 'space' axis and
+the Monte-Carlo methods split their runs over the ensemble axis; getters
+that return a space axis gather it once, where they copy to numpy.  The
+mesh combinations the port does not run raise ``NotImplementedError``
+instead of running something else.
 
 The Monte-Carlo methods run the accelerator configuration of the JAX
 package on every device (its branch for ``jax.default_backend() ==
@@ -36,6 +40,7 @@ from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core import preprocess as _pre
 from xmca_tpu_torch.core import solver as _solver
 from xmca_tpu_torch.core.rotation import promax as _promax
+from xmca_tpu_torch.parallel import mesh as _mesh
 from xmca_tpu_torch.stats import significance as _sig
 from xmca_tpu_torch.utils.device import resolve_device
 
@@ -176,6 +181,14 @@ class MCA:
         self._stream_weights = {}
         # a chunk-backed solve's precision
         self._stream_dtype = None
+        # the device mesh (set_solver), and per field the global packed
+        # columns this rank holds once the fields are sharded over its
+        # 'space' axis (None: unsharded)
+        self._mesh = None
+        self._ensemble_axis = 'ensemble'
+        self._shard_cols = None
+        # a chunk-backed model's own columns on a space mesh (from_chunks)
+        self._stream_own = None
 
         data = dict(zip(self._keys, fields))
         self._set_field_meta(data)
@@ -291,14 +304,20 @@ class MCA:
         stored with no effect: the port solves one ensemble run at a
         time, and the results do not depend on them in the JAX package
         either.
-        ``mesh`` and another ``ensemble_axis`` are not ported and raise
-        ``NotImplementedError``.
+        ``mesh``: a ``DeviceMesh`` from
+        :func:`xmca_tpu_torch.parallel.make_mesh` (every rank of it runs
+        the same calls).  The next ``solve`` shards each field's packed
+        columns over its 'space' axis (the packed width must divide by
+        the shard count; a chunk-backed model shards every chunk), and
+        ``rule_n`` and ``bootstrapping`` split their runs over
+        ``ensemble_axis`` (default 'ensemble').  Not run on a space mesh
+        (``NotImplementedError``): ``bootstrapping(axis=1)`` of an
+        in-memory model, and an ``ensemble_axis`` that is the space axis
+        of a sharded model's bootstrap.
         """
         if mesh is not None:
-            raise _not_ported('set_solver(mesh=...)')
-        if ensemble_axis != 'ensemble':
-            raise _not_ported('set_solver(ensemble_axis={!r})'
-                              .format(ensemble_axis))
+            self._mesh = mesh
+        self._ensemble_axis = ensemble_axis
         if surrogate_dtype is not None:
             self._surrogate_dtype = _torch_dtype(surrogate_dtype)
         if method is not None:
@@ -399,6 +418,59 @@ class MCA:
                 '`{:}` needs the full data matrix and is not available '
                 'for chunk-backed (out-of-core) models.'.format(what))
 
+    # ----------------------------------------------------------- the mesh
+    def _space(self):
+        """The space context of the model's sharded data: the mesh when
+        the fields are sharded over its 'space' axis, else none."""
+        return _mesh.space_context(self._mesh if self._shard_cols else None)
+
+    def _packed_width(self, key):
+        """The global packed (NaN-free) column count of field ``key``."""
+        return int(np.count_nonzero(self._no_nan_index[key]))
+
+    def _local(self, key, vec):
+        """This rank's columns of a host per-column vector over the
+        packed columns (the vector itself when unsharded)."""
+        if not self._shard_cols:
+            return vec
+        vec = np.asarray(vec)
+        if vec.ndim and vec.shape[-1] == self._packed_width(key):
+            return vec[..., self._shard_cols[key]]
+        return vec
+
+    def _gather(self, key, x):
+        """The full packed stack of rows of ``x`` (rows over field
+        ``key``'s packed columns, this rank's block of them when
+        sharded)."""
+        if not self._shard_cols:
+            return x
+        return _mesh.gather_rows(x, self._shard_cols[key],
+                                 self._packed_width(key), self._mesh)
+
+    def _shard_fields(self):
+        """Keep this rank's block of each field's packed columns (once;
+        only on a mesh with a 'space' axis of more than one shard)."""
+        if self._shard_cols or _mesh.axis_size(
+                self._mesh, _mesh.SPACE_AXIS) == 1:
+            return
+        self._fields = {k: _mesh.distribute_array(f, self._mesh).contiguous()
+                        for k, f in self._fields.items()}
+        self._shard_cols = {
+            k: _mesh.distribute_array(np.arange(self._packed_width(k)),
+                                      self._mesh, axis=0)
+            for k in self._keys}
+
+    def _shard_solution(self):
+        """:meth:`_shard_fields` for a solution installed whole (a load,
+        a carried state): the singular vectors keep the rank's rows."""
+        if self._shard_cols:
+            return
+        self._shard_fields()
+        if self._shard_cols:
+            self._V = {k: v[torch.as_tensor(self._shard_cols[k],
+                                            device=self._device)]
+                       for k, v in self._V.items()}
+
     def _stream_transform(self):
         """``(weights, normalize)``: the column scaling every streamed pass
         applies to a chunk-backed model's chunks."""
@@ -450,6 +522,7 @@ class MCA:
             w = np.asarray(w)
             if not np.issubdtype(w.dtype, np.number) or np.isnan(w).any():
                 self._nan_guard_dirty = True
+            w = self._local(k, w)
             f = self._fields[k]
             self._fields[k] = f * torch.as_tensor(w, device=self._device,
                                                   dtype=f.dtype)
@@ -464,7 +537,8 @@ class MCA:
                 # zero-std columns divide to NaN, as in the reference
                 self._nan_guard_dirty = True
             self._fields[k] = _pre.standardize(
-                f, torch.as_tensor(stds, device=self._device, dtype=f.dtype))
+                f, torch.as_tensor(self._local(k, stds), device=self._device,
+                                   dtype=f.dtype))
         self._analysis['is_normalized'] = True
         self._analysis['is_coslat_corrected'] = False
         self._analysis['method'] = self._get_method_id()
@@ -474,10 +548,11 @@ class MCA:
         (tensors on the device)."""
         scaled = {}
         for k, field in data_dict.items():
-            field = field - _host_to(self._field_means[k], field, real=True)
+            field = field - _host_to(self._local(k, self._field_means[k]),
+                                     field, real=True)
             if self._analysis['is_normalized']:
-                field = field / _host_to(self._field_stds[k], field,
-                                         real=True)
+                field = field / _host_to(
+                    self._local(k, self._field_stds[k]), field, real=True)
             scaled[k] = field
         return scaled
 
@@ -524,13 +599,14 @@ class MCA:
         n_obs = self._n_observations['left']
         if n_obs > _HILBERT_MATMUL_MAX_N:
             return False
-        return min(int(f.shape[1]) for f in self._fields.values()) >= n_obs
+        return min(self._packed_width(k) for k in self._keys) >= n_obs
 
     def _get_X(self, original_scale=False):
-        """The packed fields on the device (complex ones materialized)."""
+        """The packed fields on the device (complex ones materialized),
+        their space shards gathered."""
         self._require_resident_fields('fields')
         self._ensure_complex_fields()
-        X = dict(self._fields)
+        X = {k: self._gather(k, f.T).T for k, f in self._fields.items()}
         if original_scale:
             X = self._scale_X_inverse(X)
         return X
@@ -579,7 +655,7 @@ class MCA:
                 inv_colmul=(self._stream_inverse_colmul(k)
                             if original_scale else None),
                 dtype=self._stream_dtype,
-                device=self._device)
+                device=self._device, mesh=self._mesh)
             full[:, ~self._no_nan_index[k]] = np.nan
             fields[k] = full.reshape(
                 (n_obs,) + tuple(self._fields_spatial_shape[k]))
@@ -632,10 +708,14 @@ class MCA:
         # the reference's guard, np.isnan(X).all(): packed fields hold no
         # NaN, so only a NaN weight or a zero-std normalize can make one
         # all NaN; raise before any result is installed
-        if self._nan_guard_dirty and any(
-                bool(torch.isnan(f).all()) for f in self._fields.values()):
-            raise RuntimeError('Fields are empty. Did you forget to load '
-                               'data?')
+        if self._nan_guard_dirty:
+            with self._space():
+                empty = any(_mesh.space_all(bool(torch.isnan(f).all()),
+                                            f.device)
+                            for f in self._fields.values())
+            if empty:
+                raise RuntimeError('Fields are empty. Did you forget to '
+                                   'load data?')
         # a re-solve runs on the complexified fields (the solve mutates
         # the stored data); when this solve defers again, the fold reads
         # only the real part, which is analytic(real(Z)) == Z's
@@ -652,13 +732,16 @@ class MCA:
                 self._fields[k] = _pre.complexify(
                     self._fields[k], extend=extend, period=period)
 
+        # a space mesh shards the (weighted, complexified) packed columns
+        self._shard_fields()
         fields = [self._fields[k] for k in self._keys]
-        if self._solver_truncate is not None:
-            svals, Vs, totals = self._solve_truncated(fields)
-        else:
-            s, Vs = _solver.solve(fields, method=self._solver_method)
-            svals = _np(s)
-            totals = (float(svals.sum()), float((svals ** 2).sum()))
+        with self._space():
+            if self._solver_truncate is not None:
+                svals, Vs, totals = self._solve_truncated(fields)
+            else:
+                s, Vs = _solver.solve(fields, method=self._solver_method)
+                svals = _np(s)
+                totals = (float(svals.sum()), float((svals ** 2).sum()))
         self._install_solution(svals, Vs, totals)
 
     def _solve_truncated(self, fields):
@@ -668,8 +751,10 @@ class MCA:
         Xr = fields[-1]
         Xr_arg = Xr if len(fields) == 2 else None
         n_obs = Xl.shape[0]
-        k = min(self._solver_truncate, n_obs, Xl.shape[1], Xr.shape[1])
-        if min(Xl.shape[1], Xr.shape[1]) < n_obs:
+        p_l, p_r = (self._packed_width(k) for k in (self._keys[0],
+                                                   self._keys[-1]))
+        k = min(self._solver_truncate, n_obs, p_l, p_r)
+        if min(p_l, p_r) < n_obs:
             # small-space regime: the temporal Grams are rank deficient
             # beyond the jitter, so the Cholesky reduction is invalid; the
             # exact pipeline is cheap here
@@ -712,7 +797,10 @@ class MCA:
             self._n_observations['left'], self._solver_truncate or 20,
             complexify=complexify, extend=extend, period=period,
             seed=self._solver_seed, n_iter=self._subspace_iters,
-            device=self._device, weights=weights, normalize=normalize)
+            device=self._device, weights=weights, normalize=normalize,
+            mesh=self._mesh)
+        self._shard_cols = res.cols
+        self._stream_own = res.own
         self._field_means = {k: res.means[k] for k in self._keys}
         self._field_stds = {k: res.stds[k] for k in self._keys}
         self._no_nan_index = {k: res.keep[k] for k in self._keys}
@@ -760,21 +848,22 @@ class MCA:
         if self._analysis['is_bivariate']:
             cols.append(self._V['right'][:, :n_rot])
         L = torch.cat(cols, dim=0) * _host_to(sqrt_s, Vl, real=True)[None, :]
-        L_rot, R, Phi, converged, n_iter = _promax(
-            L, power=power, max_iter=1000, tol=tol)
+        with self._space():
+            L_rot, R, Phi, converged, n_iter = _promax(
+                L, power=power, max_iter=1000, tol=tol)
+            n_left = Vl.shape[0]
+            if self._analysis['is_bivariate']:
+                norm = {'left': _mesh.col_norm(L_rot[:n_left]),
+                        'right': _mesh.col_norm(L_rot[n_left:])}
+            else:
+                both = _mesh.col_norm(L_rot)
+                norm = {'left': both, 'right': both}
         self._rotate_iterations = n_iter
         if not converged:
             raise RuntimeError(
                 'Rotation process did not converge. Try decreasing the '
                 'tolerance. Invalid NaN entries also might be a problem.'
             )
-        n_left = Vl.shape[0]
-        if self._analysis['is_bivariate']:
-            norm = {'left': torch.linalg.norm(L_rot[:n_left], dim=0),
-                    'right': torch.linalg.norm(L_rot[n_left:], dim=0)}
-        else:
-            both = torch.linalg.norm(L_rot, dim=0)
-            norm = {'left': both, 'right': both}
         norm = {k: _np(v) for k, v in norm.items()}
         variance = norm['left'] * norm['right']
         self._norm = {k: norm[k] for k in self._keys}
@@ -890,17 +979,18 @@ class MCA:
         keep = self._get_slice(n)
         basis = self._basis()
         if not rotated:
-            return {k: _np(basis[k][:, :pool])[:, keep] for k in self._keys}
+            return {k: _np(self._gather(k, basis[k][:, :pool]))[:, keep]
+                    for k in self._keys}
         col_w, _ = self._rotation_weights(pool)
         norm = self._get_norm(pool, sorted=False)
         R = self.rotation_matrix()
         out = {}
         for k in self._keys:
             V = basis[k]
-            out[k] = _np(_loadings(
+            out[k] = _np(self._gather(k, _loadings(
                 V, _host_to(col_w, V, real=True), _host_to(R, V),
                 _host_to(1.0 / norm[k], V, real=True), self._order(),
-                pool))[:, keep]
+                pool)))[:, keep]
         return out
 
     def _raw_scores(self, key, pool):
@@ -912,7 +1002,8 @@ class MCA:
         if self._is_chunk_backed():
             return self._stream_scores[key][:, :pool]
         self._ensure_complex_fields()
-        return self._fields[key] @ V
+        with self._space():
+            return _mesh.space_sum(self._fields[key] @ V)
 
     def _get_U(self, n=None, rotated=True):
         """PC time series: the stored fields projected through the
@@ -1107,9 +1198,11 @@ class MCA:
                     self._chunk_loaders[key], self._n_observations[key], Sc,
                     torch.linalg.norm(Sc, dim=0), weights=weights.get(key),
                     normalize=normalize, dtype=self._stream_dtype,
-                    device=self._device)[self._no_nan_index[key]]
+                    device=self._device,
+                    mesh=self._mesh)[self._no_nan_index[key]]
             else:
-                rmap = _np(_pattern(self._fields[key], Sc))
+                rmap = _np(self._gather(key, _pattern(self._fields[key],
+                                                      Sc)))
             r[key] = rmap
             p[key] = self._corr_pvalues(rmap, self._n_observations[key])
         return self._scatter_to_grid(r), self._scatter_to_grid(p)
@@ -1160,6 +1253,7 @@ class MCA:
         rec = {}
         for k in self._keys:
             A, B = _real_factors(*self._reconstruct_factors_dev(k, mode))
+            B = self._gather(k, B)
             if original_scale:
                 colmul, coladd = self._inverse_scale_vectors(k)
                 if colmul is not None:
@@ -1197,6 +1291,8 @@ class MCA:
         try:
             flat = arr.reshape(arr.shape[0], self._n_variables[key])
             flat = flat[:, self._no_nan_index[key]]
+            if self._shard_cols:
+                flat = flat[:, self._shard_cols[key]]
         except ValueError as err:
             if arr.ndim != len(self._shape[key]):
                 msg = (
@@ -1234,8 +1330,10 @@ class MCA:
             packed = self._conform_new_data(k, arr)
             dtype = torch.promote_types(packed.dtype, basis[k].dtype)
             packed, V = packed.to(dtype), basis[k].to(dtype)
+            with self._space():
+                XV = _mesh.space_sum(packed @ V[:, :pool])
             scores = _np(_scores_rotated(
-                packed @ V[:, :pool], _host_to(whiten, V, real=True),
+                XV, _host_to(whiten, V, real=True),
                 _host_to(R_it, V), self._order()))[:, :count]
             scores = self._shift_phase(scores, phase_shift)
             ref = (self._get_pcs(count, 'None', phase_shift)[k]
@@ -1356,7 +1454,8 @@ class MCA:
         spectra, totals, n_iter = _sig.rule_n_spectra(
             self._n_observations['left'],
             tuple(self._n_variables[k] for k in self._keys), n_runs,
-            seed=seed, device=self._device, H=H, **cfg)
+            seed=seed, device=self._device, H=H, mesh=self._mesh,
+            ensemble_axis=self._ensemble_axis, **cfg)
         self._rule_n_iterations = n_iter
         if spectra.shape[0] == 0:
             raise RuntimeError(
@@ -1403,6 +1502,10 @@ class MCA:
         if strategy not in ('standard', 'iterative'):
             raise ValueError(
                 "strategy must be 'standard' or 'iterative'")
+        if self._shard_cols and self._ensemble_axis == _mesh.SPACE_AXIS:
+            raise _not_ported(
+                "bootstrapping with ensemble_axis='space' of a model "
+                "sharded over that axis")
         n_modes_max = self._get_min_mode(n_modes, rotated=True)
         var_surr = np.zeros([n_modes_max, n_runs])
         if seed is None:
@@ -1430,26 +1533,30 @@ class MCA:
         for mode in range(n_mode_iters):
             X_surr = self._get_X_dev(real=True)
             if strategy == 'iterative':
-                # deflate the leading modes on the device
+                # deflate the leading modes on the device (each rank its
+                # columns)
                 X_surr = {k: x - self._reconstructed_X_dev(k, mode)
                           for k, x in X_surr.items()}
             if (complexify and not extend
                     and self._ensemble_spectrum == 'fast'):
                 lead = X_surr[self._keys[0]]
                 H = self._hilbert_operator(lead.shape[0], lead.dtype)
-            spectra, converged = _sig.bootstrap_spectra(
-                [X_surr[k] for k in self._keys], n_runs, n_modes_max - mode,
-                axis=axis, on_left=on_left, on_right=on_right,
-                block_size=block_size, replace=replace,
-                complexify=complexify, extend=extend,
-                period=self._analysis['theta_period'],
-                rotated=self._analysis['is_rotated'],
-                n_rot=self._analysis['n_rot'],
-                power=max(1, self._analysis['power']), tol=tol,
-                method=self._solver_method, seed=seed + mode,
-                spectrum=self._ensemble_spectrum,
-                subspace_iters=self._subspace_iters, hilbert_H=H,
-            )
+            with self._space():
+                spectra, converged = _sig.bootstrap_spectra(
+                    [X_surr[k] for k in self._keys], n_runs,
+                    n_modes_max - mode, mesh=self._mesh,
+                    ensemble_axis=self._ensemble_axis,
+                    axis=axis, on_left=on_left, on_right=on_right,
+                    block_size=block_size, replace=replace,
+                    complexify=complexify, extend=extend,
+                    period=self._analysis['theta_period'],
+                    rotated=self._analysis['is_rotated'],
+                    n_rot=self._analysis['n_rot'],
+                    power=max(1, self._analysis['power']), tol=tol,
+                    method=self._solver_method, seed=seed + mode,
+                    spectrum=self._ensemble_spectrum,
+                    subspace_iters=self._subspace_iters, hilbert_H=H,
+                )
             # a run whose rotation did not converge leaves its rows as
             # they were (the reference skips it)
             var_surr[mode:, converged] = spectra[converged].T
@@ -1502,7 +1609,8 @@ class MCA:
                         _host_to(inv_norm[k], P, real=True), self._order(),
                         pool)[:, :mode]
                     deflate[k] = (S, W)
-                    g_iter[k] = deflated_gram(grams[k], XcW, S, W)
+                    with self._space():
+                        g_iter[k] = deflated_gram(grams[k], XcW, S, W)
             spectra, converged = bootstrap_spectra_streamed(
                 self._chunk_loaders, self._no_nan_index, g_iter, n_obs,
                 n_runs, n_modes_max - mode, weights=weights,
@@ -1514,7 +1622,8 @@ class MCA:
                 power=max(1, self._analysis['power']), tol=tol,
                 seed=seed + mode, batch_size=self._ensemble_batch_size,
                 subspace_iters=self._subspace_iters, dtype=dtype,
-                device=self._device, deflate=deflate)
+                device=self._device, deflate=deflate, mesh=self._mesh,
+                ensemble_axis=self._ensemble_axis, own=self._stream_own)
             var_surr[mode:, converged] = spectra[converged].T
             if strategy == 'standard':
                 break
@@ -1624,6 +1733,7 @@ class MCA:
                       else ['left'])
         self._complexify_pending = False
         self._hilbert = None
+        self._shard_cols = None
         data = {k: np.asarray(fields[k]) for k in self._keys}
         # the names read above give way to the keys, as in the JAX package
         # (its field metadata is set after the info file)
@@ -1649,6 +1759,8 @@ class MCA:
             keep = ~np.isnan(eofs_2d).any(axis=1)
             self._V[k] = torch.as_tensor(
                 np.ascontiguousarray(eofs_2d[keep]), device=self._device)
+        # on a space mesh each rank keeps its block of columns and rows
+        self._shard_solution()
         n = len(svals)
         self._rotation_matrix = np.eye(n)
         self._correlation_matrix = np.eye(n)

@@ -7,7 +7,9 @@ the field's own ``time``/``lat``/``lon`` coordinates).  ``save_analysis``
 writes the JAX package's on-disk format (``info.xmca`` plus netCDF files)
 and ``load_analysis`` reads it, whichever package wrote it; ``plot`` draws
 maps (cartopy when it is importable).  ``xMCA.from_chunks`` builds a
-chunk-backed (out-of-core) model from chunk loaders and coordinates.
+chunk-backed (out-of-core) model from chunk loaders and coordinates.  A
+mesh set with ``set_solver(mesh=...)`` runs as in :class:`MCA`; on it
+``save_analysis`` is written by rank 0.
 Works with real xarray when installed, else with
 :mod:`xmca_tpu_torch.compat.xarray_lite`.
 """
@@ -18,6 +20,7 @@ import torch
 
 from xmca_tpu_torch.compat import xr, open_dataarray
 from xmca_tpu_torch.api.array import MCA, _host_to
+from xmca_tpu_torch.parallel import mesh as _mesh
 from xmca_tpu_torch.utils.text import secure_str
 
 # the labeled array type xMCA takes: xarray's when it is installed, else
@@ -112,7 +115,8 @@ class xMCA(MCA):
         """Center / normalize / coslat-weight new data, per field."""
         scaled = super()._scale_X(data_dict)
         if self._analysis['is_coslat_corrected']:
-            scaled = {k: f * _host_to(self._coslat_weights(k), f, real=True)
+            scaled = {k: f * _host_to(self._local(k, self._coslat_weights(k)),
+                                      f, real=True)
                       for k, f in scaled.items()}
         return scaled
 
@@ -160,7 +164,8 @@ class xMCA(MCA):
             ) from err
         dtype = self._fields[k].dtype
         self._fields[k] = torch.as_tensor(
-            np.ascontiguousarray(new_field), device=self._device).to(dtype)
+            np.ascontiguousarray(self._local(k, new_field)),
+            device=self._device).to(dtype)
 
     def _weight_grid(self, k, weight):
         """A weight evaluated on field `k`'s full spatial grid (no
@@ -439,17 +444,21 @@ class xMCA(MCA):
     def save_analysis(self, path=None, engine='h5netcdf'):
         """Save the analysis: the ``info.xmca`` manifest, the singular
         values, each field's unrotated EOFs and its original-scale fields
-        (real part), as netCDF files in the JAX package's layout."""
+        (real part), as netCDF files in the JAX package's layout.  On a
+        mesh every rank gathers the arrays, rank 0 writes them and the
+        others wait for it."""
         analysis_path = self._get_analysis_path(path)
-        self._create_analysis_path(analysis_path)
-        self._create_info_file(analysis_path)
         fields = self.fields(original_scale=True)
         eofs = self.eofs(rotated=False)
-        self._save_data(self.singular_values(), analysis_path, engine)
-        for key in self._keys:
-            self._save_data(eofs[key], analysis_path, engine)
-            # the complex parts are recomputed on load
-            self._save_data(fields[key].real, analysis_path, engine)
+        if _mesh.is_writer(self._mesh):
+            self._create_analysis_path(analysis_path)
+            self._create_info_file(analysis_path)
+            self._save_data(self.singular_values(), analysis_path, engine)
+            for key in self._keys:
+                self._save_data(eofs[key], analysis_path, engine)
+                # the complex parts are recomputed on load
+                self._save_data(fields[key].real, analysis_path, engine)
+        _mesh.barrier(self._mesh)
 
     def load_analysis(self, path, engine='h5netcdf'):
         """Load an analysis saved by ``save_analysis`` (of this package

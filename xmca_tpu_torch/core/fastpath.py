@@ -31,6 +31,7 @@ import torch
 from xmca_tpu_torch.core.linalg import (ns_polar_iterate_scaled,
                                         ns_polar_schedule)
 from xmca_tpu_torch.core.preprocess import _analytic_weights
+from xmca_tpu_torch.parallel import mesh as _mesh
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -122,10 +123,12 @@ def _analytic_fold(G, H):
 
 def analytic_temporal_gram(X, H, jitter_rel=1e-6):
     """Jittered temporal Gram of ``analytic(X)`` from real ``X`` (f32 from
-    a bf16 ``X``)."""
-    G = _data_dot(X, X.T)
+    a bf16 ``X``); summed over the space shards of a
+    :func:`~xmca_tpu_torch.parallel.mesh.space_context`."""
+    G = _mesh.space_sum(_data_dot(X, X.T))
     GZ = _analytic_fold(G, H)
-    return _jitter(GZ, X.shape[1], jitter_rel, input_eps=_eps(X.dtype))
+    return _jitter(GZ, _mesh.space_total(X.shape[1], X.device), jitter_rel,
+                   input_eps=_eps(X.dtype))
 
 
 def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
@@ -137,9 +140,11 @@ def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
 
 
 def temporal_gram(X, jitter_rel=1e-6):
-    """Jittered temporal Gram ``X X^H + eps I`` (f32 from a bf16 ``X``)."""
-    G = _data_dot(X, X.mH)
-    return _jitter(G, X.shape[1], jitter_rel, input_eps=_eps(X.dtype))
+    """Jittered temporal Gram ``X X^H + eps I`` (f32 from a bf16 ``X``);
+    summed over the space shards of a space context."""
+    G = _mesh.space_sum(_data_dot(X, X.mH))
+    return _jitter(G, _mesh.space_total(X.shape[1], X.device), jitter_rel,
+                   input_eps=_eps(X.dtype))
 
 
 def reduced_kernel(Xl, Xr, jitter_rel=1e-6):
@@ -291,11 +296,11 @@ def _rotated_variance(Vl, Vr, s, power, tol, polar_method, space=None):
     L_rot, _, _, converged, n_it = promax(
         L, power=power, tol=tol, polar_method=polar_method, space=space)
     n_left = Vl.shape[0]
-    norm_left = torch.linalg.norm(L_rot[:n_left], dim=0)
+    norm_left = _mesh.col_norm(L_rot[:n_left])
     if Vr is None:
         variance = norm_left ** 2
     else:
-        variance = norm_left * torch.linalg.norm(L_rot[n_left:], dim=0)
+        variance = norm_left * _mesh.col_norm(L_rot[n_left:])
     variance = torch.sort(variance, descending=True).values
     return (variance, converged and bool(torch.isfinite(variance).all()),
             n_it)

@@ -12,6 +12,8 @@ slow dense SVD) and ``randomized_decomposition`` (no caller).
 """
 import torch
 
+from xmca_tpu_torch.parallel import mesh as _mesh
+
 __all__ = ['safe_reciprocal', 'field_decomposition', 'kernel_svd',
            'pinv_hermitian_diag', 'ns_polar_schedule', 'ns_polar_apply',
            'ns_polar_iterate', 'ns_polar_iterate_scaled',
@@ -31,9 +33,10 @@ def safe_reciprocal(s, rel_cutoff=None):
 def _nan_unless_finite(A, shapes):
     """NaN tensors of ``shapes`` (pairs of a shape and True for ``A``'s
     dtype, False for its real dtype) when ``A`` holds a NaN or an
-    infinity, else None.  A factorization of such an input returns these
-    instead of raising, as XLA's do in the JAX package (one host read)."""
-    if bool(torch.isfinite(A).all()):
+    infinity (on any space shard), else None.  A factorization of such an
+    input returns these instead of raising, as XLA's do in the JAX
+    package (one host read)."""
+    if _mesh.space_all(bool(torch.isfinite(A).all()), A.device):
         return None
     return tuple(torch.full(shape, float('nan'), device=A.device,
                             dtype=A.dtype if same else A.real.dtype)
@@ -49,9 +52,23 @@ def field_decomposition(X, method='gram'):
     non-finite ``X`` gives NaN factors.
 
     Returns ``K (n, r)``, ``L (r,)`` descending and ``M (p, r)``.
+
+    Inside a space context ``X`` is this rank's block of columns and ``M``
+    its rows: with 'gram' on a field wider than long, the ``X X^H`` Gram
+    is the sum of the shards'; otherwise the blocks are gathered, the
+    whole field is decomposed on every rank and each keeps its rows.
     """
     n, p = X.shape
-    r = min(n, p)
+    if _mesh.space_sharded():
+        p_all = _mesh.space_total(p, X.device)
+        if method != 'gram' or p_all <= n:
+            full, lo = _mesh.space_gather_cols(X)
+            with _mesh.space_context(None):
+                K, L, M = field_decomposition(full, method)
+            return K, L, M[lo:lo + p]
+    else:
+        p_all = p
+    r = min(n, p_all)
     nan = _nan_unless_finite(X, (((n, r), True), ((r,), False),
                                  ((p, r), True)))
     if nan is not None:
@@ -61,14 +78,14 @@ def field_decomposition(X, method='gram'):
         return K, L, Mh.mH
     if method != 'gram':
         raise ValueError('method must be one of {"gram", "svd"}')
-    if p <= n:
+    if p_all <= n:
         w, V = torch.linalg.eigh(X.mH @ X)            # ascending
         w, V = torch.flip(w, (-1,)), torch.flip(V, (-1,))
         L = torch.sqrt(torch.clamp(w, min=0.0))
         K = X @ (V * safe_reciprocal(L))
         M = V
     else:
-        w, Q = torch.linalg.eigh(X @ X.mH)
+        w, Q = torch.linalg.eigh(_mesh.space_sum(X @ X.mH))
         w, Q = torch.flip(w, (-1,)), torch.flip(Q, (-1,))
         L = torch.sqrt(torch.clamp(w, min=0.0))
         K = Q

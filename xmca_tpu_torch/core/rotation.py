@@ -4,12 +4,17 @@ Counterpart of ``xmca_tpu/core/rotation.py``.  The JAX ``lax.while_loop``
 becomes a Python loop with the same condition and the same tolerance
 clamp; the convergence scalar is read on the host once per iteration.
 Non-convergence is a returned flag, not an exception, so Monte-Carlo
-ensembles can drop the run.
+ensembles can drop the run.  Inside a
+:func:`~xmca_tpu_torch.parallel.mesh.space_context` the loading rows are
+sharded over space: every sum over rows (the criterion, the column sums
+of squares, promax's column maxima and least-squares Grams) is reduced
+over the shards and the row count is the global one.
 """
 import torch
 
 from xmca_tpu_torch.core.linalg import (pinv_hermitian_diag,
                                         unitary_polar_factor)
+from xmca_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ['varimax', 'promax', 'ensemble_space']
 
@@ -45,6 +50,7 @@ def varimax(A, gamma=1.0, max_iter=1000, tol=1e-8, polar_method=None,
     if polar_method is None:
         polar_method = _auto_polar_method(A)
     n, p = A.shape
+    n = _mesh.space_total(n, A.device)
     dtype = A.dtype
     eps = float(torch.finfo(dtype).eps)
     # the relative nuclear-norm change cannot resolve below the dtype's
@@ -56,9 +62,9 @@ def varimax(A, gamma=1.0, max_iter=1000, tol=1e-8, polar_method=None,
     gamma_n = gamma / n
 
     if space == 'mode':
-        G2 = An.mH @ An
-        Q = (An[:, :, None] * An[:, None, :]).reshape(n, p * p)
-        T = Q.mH @ Q
+        G2 = _mesh.space_sum(An.mH @ An)
+        Q = (An[:, :, None] * An[:, None, :]).reshape(-1, p * p)
+        T = _mesh.space_sum(Q.mH @ Q)
 
         def criterion_of(R):
             V = G2 @ R
@@ -70,9 +76,11 @@ def varimax(A, gamma=1.0, max_iter=1000, tol=1e-8, polar_method=None,
     elif space in (None, 'data'):
         def criterion_of(R):
             basis = An @ R
-            col_ss = torch.sum((basis * basis.conj()).real, dim=0)
-            return An.mH @ (basis ** 2 * basis.conj()
-                            - gamma_n * (basis * col_ss[None, :]))
+            col_ss = _mesh.space_sum(
+                torch.sum((basis * basis.conj()).real, dim=0))
+            return _mesh.space_sum(An.mH @ (
+                basis ** 2 * basis.conj()
+                - gamma_n * (basis * col_ss[None, :])))
     else:
         raise ValueError("space must be 'data' or 'mode'")
 
@@ -106,11 +114,15 @@ def promax(A, power=1, max_iter=1000, tol=1e-8, polar_method=None,
     # Kaiser pre-normalization by communalities, column max-normalization
     h = torch.sqrt(torch.sum((X * X.conj()).real, dim=1))
     Xn_rows = X * (1.0 / h)[:, None].to(dtype)
-    Xn = Xn_rows / torch.max(torch.abs(Xn_rows), dim=0).values[None, :]
+    # a shard may hold no rows (a space-axis resample): its maxima are 0
+    col_max = _mesh.space_max(
+        torch.abs(Xn_rows).amax(dim=0) if Xn_rows.shape[0]
+        else Xn_rows.new_zeros(p, dtype=Xn_rows.real.dtype))
+    Xn = Xn_rows / col_max[None, :]
     # Procrustes target (Richman 1986) and least-squares fit
     P = Xn * torch.abs(Xn) ** (power - 1)
-    G = Xn_rows.mH @ Xn_rows
-    L = torch.linalg.solve(G, Xn_rows.mH @ P)
+    G = _mesh.space_sum(Xn_rows.mH @ Xn_rows)
+    L = torch.linalg.solve(G, _mesh.space_sum(Xn_rows.mH @ P))
     # rescale columns by sqrt(diag(inv(L^H L)))
     L = L @ torch.sqrt(pinv_hermitian_diag(L.mH @ L).to(dtype))
 

@@ -6,12 +6,15 @@ Counterpart of ``xmca_tpu/core/solver.py``: per-field decomposition
 ``V = M U_kernel``.  The only dense factorizations run on
 ``min(n_obs, n_space)``-sized matrices; every product is a plain ``@`` at
 the operands' precision (f32 with TF32 off on the card, f64 in the CPU
-tests).
+tests).  Inside a :func:`~xmca_tpu_torch.parallel.mesh.space_context`
+the fields are this rank's column blocks and the spatial vectors its
+rows (:func:`field_decomposition`).
 """
 import torch
 
 from xmca_tpu_torch.core.linalg import field_decomposition, kernel_svd
 from xmca_tpu_torch.core.rotation import promax
+from xmca_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ['solve_mca', 'solve_pca', 'solve', 'solve_svals',
            'solve_truncated', 'solve_rotated_variance']
@@ -88,9 +91,9 @@ def solve_rotated_variance(Xl, Xr=None, n_rot=10, power=1, tol=1e-8,
         # PCA: the loading stack holds only the single field's vectors
         L = Vl * sqrt_s[None, :]
     L_rot, _, _, converged, _ = promax(L, power=power, tol=tol)
-    norm_left = torch.linalg.norm(L_rot[:n_vars_left], dim=0)
+    norm_left = _mesh.col_norm(L_rot[:n_vars_left])
     if bivariate:
-        variance = norm_left * torch.linalg.norm(L_rot[n_vars_left:], dim=0)
+        variance = norm_left * _mesh.col_norm(L_rot[n_vars_left:])
     else:
         variance = norm_left ** 2
     return torch.sort(variance, descending=True).values, converged

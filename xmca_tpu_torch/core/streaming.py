@@ -1,9 +1,8 @@
 """Out-of-core (streamed) MCA of fields larger than the card's memory.
 
-Counterpart of ``xmca_tpu/core/streaming.py`` (its device mesh is not
-ported).  The solve contracts only over the space axis, so the data
-streams through the card in column chunks, each a host ``(n_obs,
-p_chunk)`` array from a loader:
+Counterpart of ``xmca_tpu/core/streaming.py``.  The solve contracts only
+over the space axis, so the data streams through the card in column
+chunks, each a host ``(n_obs, p_chunk)`` array from a loader:
 
 * pass 1: each chunk is centered on the card (chunks split the columns,
   so every column's full series is chunk-local and the centering is
@@ -28,6 +27,15 @@ read-only memmap, say) are never written.
 
 Chunk precision: float64 chunks solve in float64, every other dtype in
 float32 (:func:`stream_dtype`).
+
+On a device mesh with a 'space' axis (``mesh``), every rank uploads its
+share of each chunk's columns (:func:`_chunk_share`: the true columns of
+its block of the chunk padded to a multiple of the shard count, as the
+JAX package lays a chunk out; the pad columns are never made, so none
+reaches a column statistic).  A pass sums its partial Grams, score
+accumulators and column statistics over the space group ONCE, at its end;
+the spatial vectors stay sharded (``StreamedMCA.cols``: the global packed
+column of each local row).
 """
 from collections import namedtuple
 
@@ -36,6 +44,7 @@ import torch
 
 from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core import preprocess as _pre
+from xmca_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ['StreamedMCA', 'chunks_from_array', 'stream_dtype',
            'streamed_gram', 'streamed_mca', 'streamed_fields',
@@ -54,6 +63,10 @@ StreamedMCA = namedtuple('StreamedMCA', [
                     # extended solves store the complex Z Z^H
     'scores_pre',   # {'left'/'right': (n, k)} device pre-Hilbert raw
                     # scores ``Xc V`` (equal to the scores for real solves)
+    'own',          # {'left'/'right': (p_local,)} host full-layout column
+                    # of each column this rank streams; None unsharded
+    'cols',         # {'left'/'right': (p_kept_local,)} host packed column
+                    # of each row of this rank's V; None unsharded
 ])
 
 
@@ -73,30 +86,41 @@ def stream_dtype(chunk):
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def _put_chunk(chunk, dtype, device):
-    """One host chunk as a tensor of the caller's own, on ``device`` in
-    ``dtype``: ``(chunk, padded width, true width)``; without a mesh the
-    two widths are equal.  On the CPU, and for a read-only array, the host
-    data is copied first, so the in-place transform never writes into the
+def _chunk_share(wt, mesh):
+    """``(lo, hi)``: the columns of a ``wt``-column chunk this rank
+    streams: on a space mesh of S shards, the true columns of its block
+    of ``ceil(wt / S)`` (the last blocks short or empty); all of them
+    without one."""
+    shards = _mesh.axis_size(mesh, _mesh.SPACE_AXIS)
+    if shards == 1:
+        return 0, wt
+    per = -(-wt // shards)
+    lo = min(_mesh.axis_rank(mesh, _mesh.SPACE_AXIS) * per, wt)
+    return lo, min(lo + per, wt)
+
+
+def _put_chunk(chunk, dtype, device, mesh=None):
+    """This rank's columns of one host chunk as a tensor of the caller's
+    own, on ``device`` in ``dtype``: ``(chunk, lo, wt)``, ``lo`` the
+    offset of its first column in the chunk and ``wt`` the chunk's whole
+    width.  On the CPU, and for a read-only array, the host data is
+    copied first, so the in-place transform never writes into the
     loader's array."""
     a = np.asarray(chunk)
-    w = a.shape[1]
+    wt = a.shape[1]
+    lo, hi = _chunk_share(wt, mesh)
+    if (lo, hi) != (0, wt):
+        a = a[:, lo:hi]
     if device.type == 'cpu' or not a.flags.writeable:
         a = np.array(a, dtype=_NUMPY_DTYPE[dtype])
-    return torch.from_numpy(a).to(device=device, dtype=dtype), w, w
+    return torch.from_numpy(a).to(device=device, dtype=dtype), lo, wt
 
 
-def _unpad_select(widths):
-    """Host index selecting the true columns from concatenated per-chunk
-    statistics of padded widths; None when nothing was padded (always,
-    without a mesh)."""
-    if all(wp == wt for wp, wt in widths):
-        return None
-    sel, off = [], 0
-    for wp, wt in widths:
-        sel.append(np.arange(off, off + wt))
-        off += wp
-    return np.concatenate(sel)
+def _packed_cols(keep, own):
+    """The packed (NaN-free) column of each kept column this rank
+    streams, and the kept ones' positions in its own layout."""
+    mine = np.nonzero(keep[own])[0]
+    return (np.cumsum(keep) - 1)[own[mine]], mine
 
 
 def _zero_nan_cols(c):
@@ -157,7 +181,7 @@ def _weight_slice(weights, off, wt, dtype, device):
 
 
 def streamed_gram(chunks, n_obs, dtype=None, device='cpu', weights=None,
-                  normalize=False, extend=False, period=1):
+                  normalize=False, extend=False, period=1, mesh=None):
     """Centered temporal Gram of a streamed field (pass 1).
 
     ``chunks``: an iterable of host ``(n_obs, p_chunk)`` arrays; ``dtype``
@@ -166,11 +190,20 @@ def streamed_gram(chunks, n_obs, dtype=None, device='cpu', weights=None,
     complex ``Z Z^H``.  Returns ``(G, p_kept, mean, std, keep)``: the
     ``(n_obs, n_obs)`` Gram on the device, the count of NaN-free columns
     (the contracted width the jitter floor scales with), their RAW host
-    means and stds, and the full-width host keep mask.
+    means and stds, and the full-width host keep mask; on a space
+    ``mesh`` summed over the shards.
     """
+    return _gram_pass(chunks, n_obs, dtype, device, weights, normalize,
+                      extend, period, mesh)[:5]
+
+
+def _gram_pass(chunks, n_obs, dtype, device, weights, normalize, extend,
+               period, mesh):
+    """:func:`streamed_gram` and the full-layout column of each column
+    this rank streams (None without a space mesh)."""
     device = torch.device(device)
     G = None
-    widths, means, vars_, masks = [], [], [], []
+    starts, means, vars_, masks = [], [], [], []
     off = 0
     for chunk in chunks:
         if dtype is None:
@@ -179,9 +212,9 @@ def streamed_gram(chunks, n_obs, dtype=None, device='cpu', weights=None,
             G = torch.zeros((n_obs, n_obs), device=device,
                             dtype=_fast._complex_dtype(dtype) if extend
                             else dtype)
-        c, wp, wt = _put_chunk(chunk, dtype, device)
-        widths.append((wp, wt))
-        w = _weight_slice(weights, off, wt, dtype, device)
+        c, lo, wt = _put_chunk(chunk, dtype, device, mesh)
+        starts.append((off + lo, c.shape[1]))
+        w = _weight_slice(weights, off + lo, c.shape[1], dtype, device)
         off += wt
         if extend:
             mu, var, nan_cols = _accumulate_ext(G, c, w, normalize, extend,
@@ -194,17 +227,24 @@ def streamed_gram(chunks, n_obs, dtype=None, device='cpu', weights=None,
         masks.append(nan_cols.to(dtype))
     if G is None:
         z = np.zeros(0)
-        return G, 0, z, z, np.zeros(0, bool)
+        return G, 0, z, z, np.zeros(0, bool), None
+    stats = torch.cat(means + vars_ + masks)
+    own = None
+    if _mesh.axis_size(mesh, _mesh.SPACE_AXIS) > 1:
+        # the pass's one reduction: the Gram and every statistic, each
+        # rank's at its columns' full-layout positions
+        own = np.concatenate([np.arange(a, a + n) for a, n in starts])
+        full = torch.zeros((3, off), dtype=stats.dtype, device=device)
+        full[:, torch.as_tensor(own, device=device)] = stats.reshape(3, -1)
+        G, stats = _mesh.all_reduce_many([G, full.reshape(-1)], mesh,
+                                         _mesh.SPACE_AXIS)
     # one copy to the host for every per-chunk statistic, after the pass
-    flat = torch.cat(means + vars_ + masks).cpu().numpy()
-    pp = sum(wp for wp, _ in widths)
-    mean, var, nan_cols = flat[:pp], flat[pp:2 * pp], flat[2 * pp:] > 0.5
-    sel = _unpad_select(widths)
-    if sel is not None:
-        mean, var, nan_cols = mean[sel], var[sel], nan_cols[sel]
+    flat = stats.cpu().numpy()
+    mean, var, nan_cols = flat[:off], flat[off:2 * off], flat[2 * off:] > 0.5
     keep = ~nan_cols
     mean, var = mean[keep], var[keep]
-    return G, int(keep.sum()), mean, np.sqrt(np.maximum(var, 0.0)), keep
+    return (G, int(keep.sum()), mean, np.sqrt(np.maximum(var, 0.0)), keep,
+            own)
 
 
 def _real_times(x, P):
@@ -298,13 +338,14 @@ def _fields_chunk(c, w, H, inv_w, complexify, normalize, original, extend,
 def streamed_fields(loader, n_obs, *, complexify=False, extend=False,
                     period=1, weights=None, normalize=False,
                     original_scale=False, inv_colmul=None, dtype=None,
-                    device='cpu'):
+                    device='cpu', mesh=None):
     """A streamed field as one host ``(n_obs, p)`` array, the loader read
     once with the model's per-chunk transform (the chunk-backed
     ``fields()``); ``inv_colmul`` is a full-width per-column inverse that
     ``original_scale`` applies before un-normalizing.  Each chunk's result
     is copied to the host as it is made: the full field never sits on the
-    card."""
+    card.  On a space ``mesh`` each chunk is gathered from the shards
+    (one sum a chunk)."""
     device = torch.device(device)
     extend = extend if complexify else False
     H = None
@@ -314,12 +355,17 @@ def streamed_fields(loader, n_obs, *, complexify=False, extend=False,
             dtype = stream_dtype(chunk)
         if complexify and not extend and H is None:
             H = _fast.hilbert_operator(n_obs, dtype, device)
-        c, _, wt = _put_chunk(chunk, dtype, device)
-        w = _weight_slice(weights, off, wt, dtype, device)
-        inv_w = _weight_slice(inv_colmul, off, wt, dtype, device)
+        c, lo, wt = _put_chunk(chunk, dtype, device, mesh)
+        nt = c.shape[1]
+        w = _weight_slice(weights, off + lo, nt, dtype, device)
+        inv_w = _weight_slice(inv_colmul, off + lo, nt, dtype, device)
         off += wt
         z = _fields_chunk(c, w, H, inv_w, complexify, normalize,
                           original_scale, extend, period)
+        if nt != wt:
+            full = z.new_zeros((n_obs, wt))
+            full[:, lo:lo + nt] = z
+            z = _mesh.all_reduce(full, mesh, _mesh.SPACE_AXIS)
         parts.append(z.cpu().resolve_conj().numpy())
     return np.concatenate(parts, axis=1)
 
@@ -333,22 +379,27 @@ def _pattern_chunk(c, w, Sc, s_norm, normalize):
 
 
 def streamed_patterns(loader, n_obs, Sc, s_norm, *, weights=None,
-                      normalize=False, dtype=None, device='cpu'):
+                      normalize=False, dtype=None, device='cpu', mesh=None):
     """Correlation map ``(p, k)`` (host) of a streamed field against the
     centered real PC series ``Sc (n_obs, k)`` on the device, with norms
-    ``s_norm``; one pass over the loader.  NaN (zeroed) columns come out
-    as 0/0 = NaN rows."""
+    ``s_norm``; one pass over the loader (on a space ``mesh``, the
+    shards' rows gathered at its end).  NaN (zeroed) columns come out as
+    0/0 = NaN rows."""
     device = torch.device(device)
-    parts, off = [], 0
+    parts, own, off = [], [], 0
     for chunk in loader():
         if dtype is None:
             dtype = stream_dtype(chunk)
-        c, _, wt = _put_chunk(chunk, dtype, device)
-        w = _weight_slice(weights, off, wt, dtype, device)
+        c, lo, wt = _put_chunk(chunk, dtype, device, mesh)
+        w = _weight_slice(weights, off + lo, c.shape[1], dtype, device)
+        own.append(np.arange(off + lo, off + lo + c.shape[1]))
         off += wt
         parts.append(_pattern_chunk(c, w, Sc.to(dtype), s_norm.to(dtype),
                                     normalize))
-    return torch.cat(parts).cpu().numpy()
+    r = torch.cat(parts)
+    if _mesh.axis_size(mesh, _mesh.SPACE_AXIS) > 1:
+        r = _mesh.gather_rows(r, np.concatenate(own), off, mesh)
+    return r.cpu().numpy()
 
 
 def _fold_score_hilbert(A, H):
@@ -361,7 +412,7 @@ def _fold_score_hilbert(A, H):
 def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
                  complexify=False, extend=False, period=1, seed=0,
                  n_iter=12, jitter_rel=1e-6, device='cpu', weights=None,
-                 normalize=False):
+                 normalize=False, mesh=None):
     """Truncated (complex) MCA of two streamed fields.
 
     ``chunks_left``, ``chunks_right``: callables returning a fresh
@@ -372,7 +423,9 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
     the complexified chunks.  ``seed`` seeds the subspace start block, as
     the in-memory truncated solve draws it (a ``torch.Generator`` on
     ``device``).  ``weights`` (``{'left'/'right': scalar or (p,) vector}``)
-    and ``normalize`` scale the columns in every pass.
+    and ``normalize`` scale the columns in every pass.  ``mesh``: a
+    device mesh whose 'space' axis shards every chunk's columns (the
+    loadings come back as this rank's rows).
 
     Returns a :class:`StreamedMCA`: the loadings, PC series, Grams and
     pre-Hilbert scores on the device; the spectrum, the totals and the
@@ -383,15 +436,14 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
     weights = weights or {}
     extend = extend if complexify else False
     H, dtype = None, None
-    means, stds, keeps, grams = {}, {}, {}, {}
+    means, stds, keeps, grams, own = {}, {}, {}, {}, {}
 
     def field_gram(loader, side):
         # the left field's first chunk sets the precision of both
         nonlocal H, dtype
-        G, p, means[side], stds[side], keeps[side] = streamed_gram(
-            loader(), n_obs, dtype=dtype, device=device,
-            weights=weights.get(side), normalize=normalize, extend=extend,
-            period=period)
+        G, p, means[side], stds[side], keeps[side], own[side] = _gram_pass(
+            loader(), n_obs, dtype, device, weights.get(side), normalize,
+            extend, period, mesh)
         if p == 0:
             raise RuntimeError(
                 'the %s field has no NaN-free columns — nothing to '
@@ -423,8 +475,9 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
         A_pre = torch.zeros_like(A) if extend else None
         parts, off = [], 0
         for chunk in loader():
-            c, _, wt = _put_chunk(chunk, dtype, device)
-            w = _weight_slice(weights.get(side), off, wt, dtype, device)
+            c, lo, wt = _put_chunk(chunk, dtype, device, mesh)
+            w = _weight_slice(weights.get(side), off + lo, c.shape[1], dtype,
+                              device)
             off += wt
             if extend:
                 P = _project_chunk_ext(c, Z, A, A_pre, w, normalize, extend,
@@ -432,7 +485,13 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
             else:
                 P = _project_chunk(c, Z, A, w, complexify, normalize)
             del c
-            parts.append(P[:wt])
+            parts.append(P)
+        # the pass's one reduction: the score accumulators
+        if extend:
+            A, A_pre = _mesh.all_reduce_many([A, A_pre], mesh,
+                                             _mesh.SPACE_AXIS)
+        else:
+            A = _mesh.all_reduce(A, mesh, _mesh.SPACE_AXIS)
         # the pre-Hilbert accumulator holds the real data's raw scores
         # ``Xc V``; analytic solves fold the Hilbert operator in after
         if not extend:
@@ -445,19 +504,26 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
         del parts
         # NaN columns came through as zero rows: pack them out, as the
         # in-memory ingestion drops them
-        if not keep.all():
+        cols = None
+        if own[side] is not None:
+            cols, mine = _packed_cols(keep, own[side])
+            Vf = Vf[torch.as_tensor(mine, device=device)]
+        elif not keep.all():
             Vf = Vf[torch.as_tensor(keep, device=device)]
-        return Vf, A, A_pre
+        return Vf, A, A_pre, cols
 
-    V_left, S_left, P_left = recover(chunks_left, La, U, keeps['left'],
-                                     'left')
+    V_left, S_left, P_left, c_left = recover(chunks_left, La, U,
+                                             keeps['left'], 'left')
     if bivariate:
-        V_right, S_right, P_right = recover(chunks_right, Lb, V,
-                                            keeps['right'], 'right')
+        V_right, S_right, P_right, c_right = recover(
+            chunks_right, Lb, V, keeps['right'], 'right')
     else:
-        V_right, S_right, P_right = V_left, S_left, P_left
+        V_right, S_right, P_right, c_right = V_left, S_left, P_left, c_left
     totals = totals.cpu().numpy()
+    sharded = own['left'] is not None
     return StreamedMCA(
         s.cpu().numpy(), V_left, V_right, float(totals[0]),
         float(totals[1]), S_left, S_right, means, stds, keeps, grams,
-        {'left': P_left, 'right': P_right})
+        {'left': P_left, 'right': P_right},
+        own if sharded else None,
+        {'left': c_left, 'right': c_right} if sharded else None)

@@ -29,6 +29,14 @@ block indices, then its subspace start block, from a CPU
 ``torch.Generator`` seeded with its run seed, so the card and the CPU
 resample identically.  The JAX package's vmapped batches are XLA
 scheduling and have no counterpart here.
+
+With a ``mesh`` (:mod:`xmca_tpu_torch.parallel.mesh`) the runs are split
+over its ``ensemble_axis``: each rank runs a contiguous share of the run
+seeds and the runs are gathered in run order (as float64: each rank's
+values upcast exactly) before the non-converged ones are dropped, so the
+result is the unsharded one run for run.  Rule-N's surrogate fields are
+whole on every rank; a bootstrap resamples the model's fields, which a
+'space' axis shards by columns (the time axis only).
 """
 import numpy as np
 import torch
@@ -36,6 +44,7 @@ import torch
 from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core.preprocess import complexify as _complexify
 from xmca_tpu_torch.core.solver import solve_rotated_variance, solve_svals
+from xmca_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ['run_seeds', 'rule_n_spectra', 'rule_n_generated',
            'rule_north_uncertainty', 'bootstrap_spectra']
@@ -65,6 +74,35 @@ def _start_block(s, k, n_obs, complexify, device):
         gen).to(device)
 
 
+def _run_row(var, total, conv, n_iter):
+    """One Rule-N run as a float64 row: its spectrum, total, converged
+    flag and iteration count (-1: not reported)."""
+    tail = torch.tensor([float(total), float(bool(conv)),
+                         -1.0 if n_iter is None else float(n_iter)],
+                        dtype=torch.float64)
+    return torch.cat([var.detach().to(torch.float64).cpu(), tail])
+
+
+def _collect_ensemble(one_run, seeds, mesh, axis):
+    """:func:`_collect` of every run, split over a mesh's ensemble; the
+    gathered spectra and totals come back in the dtype of this rank's
+    runs (exact: they were upcast from it)."""
+    if _mesh.axis_size(mesh, axis) == 1:
+        return _collect(one_run(s) for s in seeds)
+    dtype = []
+
+    def row(s):
+        var, total, conv, n_iter = one_run(s)
+        dtype[:] = [var.dtype]
+        return _run_row(var, total, conv, n_iter)
+
+    rows = _mesh.ensemble_map(lambda ss: [row(s) for s in ss], seeds, mesh,
+                              axis)
+    cast = dtype[0] if dtype else torch.float64
+    return _collect((r[:-3].to(cast), r[-3].to(cast), bool(r[-2]),
+                     None if r[-1] < 0 else int(r[-1])) for r in rows)
+
+
 def _collect(runs):
     """``(spectra, totals, n_iter)`` as numpy from per-run ``(variance,
     total, converged, n_iter)``: the runs that did not converge are
@@ -85,7 +123,8 @@ def rule_n_spectra(n_obs, n_vars, n_runs, *, complexify=False,
                    spectrum='fast', n_modes_fast=None, subspace_iters=12,
                    surrogate_source='generated',
                    surrogate_dist='rademacher8', polar_method='ns',
-                   device='cpu', H=None, grade='fast'):
+                   device='cpu', H=None, grade='fast', mesh=None,
+                   ensemble_axis='ensemble'):
     """Rule-N surrogate spectra (Overland & Preisendorfer 1982) of
     ``n_runs`` pairs of (n_obs, p_i) surrogate fields, with the keys of
     the JAX package's ``rule_n_spectra``.
@@ -98,6 +137,7 @@ def rule_n_spectra(n_obs, n_vars, n_runs, *, complexify=False,
     ``spectrum`` ('fast' or 'exact'; the fast one from the run's start
     block).
     ``H`` is the Hilbert operator of the fast complexified spectrum.
+    ``mesh`` splits the runs over its ``ensemble_axis``.
 
     Returns ``(spectra, totals, n_iter)`` as numpy: spectra
     (n_kept_runs, n_modes), non-converged runs dropped; the per-run
@@ -118,7 +158,7 @@ def rule_n_spectra(n_obs, n_vars, n_runs, *, complexify=False,
             n_rot=n_rot, power=power, tol=tol, seed=seed,
             n_modes_fast=n_modes_fast, subspace_iters=subspace_iters,
             polar_method=polar_method, device=device, H=H, grade=grade,
-            dist=surrogate_dist)
+            dist=surrogate_dist, mesh=mesh, ensemble_axis=ensemble_axis)
     if surrogate_source != 'draw':
         raise ValueError("surrogate_source must be 'draw' or 'generated'")
     k = n_rot if rotated else n_modes_fast
@@ -137,13 +177,15 @@ def rule_n_spectra(n_obs, n_vars, n_runs, *, complexify=False,
             polar_method=polar_method)
         return var, total, conv, None
 
-    return _collect(one_run(s) for s in run_seeds(seed, n_runs))
+    with _mesh.space_context(None):
+        return _collect_ensemble(one_run, run_seeds(seed, n_runs), mesh,
+                                 ensemble_axis)
 
 
 def rule_n_generated(n_obs, n_vars, n_runs, *, complexify, rotated, n_rot,
                      power, tol, seed, n_modes_fast, subspace_iters,
                      polar_method, device, H=None, grade='fast',
-                     dist='rademacher8'):
+                     dist='rademacher8', mesh=None, ensemble_axis='ensemble'):
     """Rule-N surrogate spectra from generated fields of distribution
     ``dist``.
 
@@ -153,8 +195,8 @@ def rule_n_generated(n_obs, n_vars, n_runs, *, complexify, rotated, n_rot,
     materialize each (n_obs, p_i) bf16 field with the field kernel
     (``ops.surrogate.surrogate_field``, seed ``2 s_r + i`` mod 2^32) and
     solve it with :func:`_surrogate_variance` and the fast spectrum.
-    Returns ``(spectra, totals,
-    n_iter)`` as :func:`rule_n_spectra` does.
+    ``mesh`` splits the runs over its ``ensemble_axis``.  Returns
+    ``(spectra, totals, n_iter)`` as :func:`rule_n_spectra` does.
     """
     from xmca_tpu_torch.ops.surrogate import GEN_DISTS, surrogate_field
 
@@ -180,7 +222,9 @@ def rule_n_generated(n_obs, n_vars, n_runs, *, complexify, rotated, n_rot,
             polar_method=polar_method)
         return var, total, conv, None
 
-    return _collect(one_run(s) for s in run_seeds(seed, n_runs))
+    with _mesh.space_context(None):
+        return _collect_ensemble(one_run, run_seeds(seed, n_runs), mesh,
+                                 ensemble_axis)
 
 
 def rule_north_uncertainty(singular_values, n_obs, is_complex=False):
@@ -277,7 +321,8 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
                       complexify=False, extend=False, period=1,
                       rotated=False, n_rot=0, power=1, tol=1e-8,
                       method='gram', seed=None, spectrum='exact',
-                      subspace_iters=12, hilbert_H=None):
+                      subspace_iters=12, hilbert_H=None, mesh=None,
+                      ensemble_axis='ensemble'):
     """One round of (moving-block) bootstrap spectra of ``fields``.
 
     Each run resamples the given fields (not the previous run's
@@ -290,11 +335,22 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     ``extend`` ('exp'/'theta', ``period``) each resample is re-centered,
     extended and complexified, then solved as complex fields.
 
+    ``mesh`` splits the runs over its ``ensemble_axis``.  Inside a space
+    context (:func:`xmca_tpu_torch.parallel.mesh.space_context`) the
+    ``fields`` are this rank's column blocks (the model's shards), every
+    resample's contractions sum over the space group, and only the time
+    axis resamples (``axis=1`` raises ``NotImplementedError``).
+
     Returns ``(spectra (n_runs, n_out_modes), converged (n_runs,))`` as
     numpy; the rows of non-converged runs are to be dropped.
     """
     if axis not in (0, 1):
         raise ValueError('{:} not a valid axis. either 0 or 1.'.format(axis))
+    if axis == 1 and _mesh.space_sharded():
+        raise NotImplementedError(
+            'bootstrapping(axis=1) of an in-memory model whose fields are '
+            'sharded over a space mesh is not ported (see ROADMAP.md, '
+            'queue 1)')
     if seed is None:
         seed = int(np.random.randint(0, 2 ** 31 - 1))
     bivariate = len(fields) == 2
@@ -341,8 +397,7 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
                              replace).to(device)
         return [f[:, idx] if j == i else f for j, f in enumerate(fs)]
 
-    spectra, converged = [], []
-    for s in run_seeds(seed, n_runs):
+    def one_run(s):
         gen = torch.Generator().manual_seed(s)
         fs = resample(gen, list(fields))
         cplx = complexify
@@ -361,7 +416,12 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
             # resamples of REAL data can have a large mode-variance
             # spread: the convergence-gated polar, as in the JAX package
             polar_method='ns-gated')
-        spectra.append(var[:n_out_modes].to(torch.float64))
-        converged.append(conv)
-    return (torch.stack(spectra).cpu().numpy(),
-            np.asarray(converged, dtype=bool))
+        return torch.cat([var[:n_out_modes].to(torch.float64),
+                          torch.tensor([float(bool(conv))],
+                                       dtype=torch.float64,
+                                       device=var.device)])
+
+    rows = torch.stack(list(_mesh.ensemble_map(
+        lambda ss: [one_run(s) for s in ss], run_seeds(seed, n_runs), mesh,
+        ensemble_axis))).cpu().numpy()
+    return rows[:, :-1], rows[:, -1] > 0.5

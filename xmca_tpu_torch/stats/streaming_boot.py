@@ -1,8 +1,8 @@
 """Bootstrapping of chunk-backed (out-of-core) models, in Gram space.
 
-Counterpart of ``xmca_tpu/stats/streaming_boot.py`` (its device mesh is
-not ported).  A chunk-backed model's data never sits whole on the device,
-so its bootstrap cannot resample the data and solve each resample as
+Counterpart of ``xmca_tpu/stats/streaming_boot.py``.  A chunk-backed
+model's data never sits whole on the device, so its bootstrap cannot
+resample the data and solve each resample as
 :func:`xmca_tpu_torch.stats.significance.bootstrap_spectra` does; it
 resamples the Grams the streamed solve stored:
 
@@ -44,6 +44,14 @@ batch are solved and rotated one after another; what a batch shares is
 its passes.  Products run at the chunks' precision (f32 on the card with
 TF32 off, f64 for f64 chunks); the per-run statistics stay on the device
 until a batch has ended.
+
+On a device mesh the runs split over the ensemble axis (each rank its
+share of the seeds, gathered in run order), and a model solved on a
+'space' axis streams its own columns of every chunk: a counts pass sums
+its partial Grams over the space group once, at its end; the projection
+rows stay on their rank, where the rotation of each run reduces over the
+group; a space-axis run's resampled rows are the draws that fall on the
+rank's columns.
 """
 from collections import namedtuple
 
@@ -51,9 +59,10 @@ import numpy as np
 import torch
 
 from xmca_tpu_torch.core import fastpath as _fast
-from xmca_tpu_torch.core.streaming import (_fold_jitter, _put_chunk,
-                                           _recovery_weights,
+from xmca_tpu_torch.core.streaming import (_fold_jitter, _packed_cols,
+                                           _put_chunk, _recovery_weights,
                                            _transform_chunk, _weight_slice)
+from xmca_tpu_torch.parallel import mesh as _mesh
 from xmca_tpu_torch.stats.significance import _block_indices, run_seeds
 
 __all__ = ['bootstrap_spectra_streamed', 'deflated_gram']
@@ -62,9 +71,17 @@ _JITTER_REL = 1e-6
 
 # what every part of one bootstrap round shares
 _Setup = namedtuple('_Setup', [
-    'loaders', 'keys', 'p_full',  # chunk loaders; full widths per field
+    'loaders', 'keys',
+    'p_all',       # per field: the full column count
+    'p_full',      # per field: the columns this rank streams (all of them
+                   # without a space mesh)
     'kept',        # per field: device index of the kept (NaN-free)
                    # columns in the full layout, None when all are kept
+    'kept_loc',    # per field: device index of the kept columns among the
+                   # rank's own (``kept`` without a space mesh)
+    'cols',        # per field: host packed column of each of the rank's
+                   # kept columns; None without a space mesh
+    'mesh',        # the device mesh of a sharded model, else None
     'p',           # per field: the kept width (the jitter floor's)
     'n_obs', 'weights', 'normalize', 'dtype', 'device', 'eps', 'H',
     'complexify', 'bivariate', 'on_left', 'on_right', 'rotated',
@@ -91,11 +108,12 @@ def deflated_gram(G, XcW, S, W):
     (n, k) mode-mixed pre-Hilbert scores ``Xc W``; ``S``: (n, k)
     eigen-scaled rotated PCs; ``W``: (p, k) rotated loadings (all three
     complex for a complexified model).  Exact algebra for
-    ``(Xc - real(S W^H)) (Xc - real(S W^H))^T``.
+    ``(Xc - real(S W^H)) (Xc - real(S W^H))^T``.  In a space context
+    ``W`` is this rank's rows and ``W^T W`` sums over the shards.
     """
     XW, Ss, Ws = _reim_stack(XcW), _reim_stack(S), _reim_stack(W)
     B = XW @ Ss.T
-    return G - B - B.T + (Ss @ (Ws.T @ Ws)) @ Ss.T
+    return G - B - B.T + (Ss @ _mesh.space_sum(Ws.T @ Ws)) @ Ss.T
 
 
 def _center_gram(Gs):
@@ -144,9 +162,26 @@ def _weights(su, L_chol, T_side, idx=None):
 
 
 def _kept_rows(su, k, P):
-    """The rows of a full-width per-column stack of field ``k`` that hold
-    its kept columns, in the in-memory packed order."""
-    return P if su.kept[k] is None else P.index_select(0, su.kept[k])
+    """The rows of a full-width per-column stack of field ``k`` (the
+    rank's own columns on a space mesh) that hold its kept columns, in
+    the in-memory packed order."""
+    return P if su.kept_loc[k] is None else P.index_select(0, su.kept_loc[k])
+
+
+def _chunks(su, k):
+    """Field ``k``'s chunks as ``(c, off, lo, loff)``: the rank's columns
+    of each chunk on the device, the chunk's offset in the full layout,
+    the rank's first column in it and its offset in the rank's own
+    layout."""
+    off = loff = 0
+    for chunk in su.loaders[k]():
+        c, lo, wt = _put_chunk(chunk, su.dtype, su.device, su.mesh)
+        if loff + c.shape[1] > su.p_full[k]:
+            raise ValueError('the {} loader yields more than the model\'s '
+                             '{} columns'.format(k, su.p_full[k]))
+        yield c, off, lo, loff
+        off += wt
+        loff += c.shape[1]
 
 
 def _stream_projection(su, k, Ycat):
@@ -157,21 +192,17 @@ def _stream_projection(su, k, Ycat):
     corr = None if S_st is None else S_st.T @ Ycat
     P = torch.empty((su.p_full[k], Ycat.shape[1]), dtype=su.dtype,
                     device=su.device)
-    off = 0
-    for chunk in su.loaders[k]():
-        c, _, wt = _put_chunk(chunk, su.dtype, su.device)
-        if off + wt > su.p_full[k]:
-            raise ValueError('the {} loader yields more than the model\'s '
-                             '{} columns'.format(k, su.p_full[k]))
-        w = _weight_slice(su.weights.get(k), off, wt, su.dtype, su.device)
+    for c, off, lo, loff in _chunks(su, k):
+        nt = c.shape[1]
+        w = _weight_slice(su.weights.get(k), off + lo, nt, su.dtype,
+                          su.device)
         cc, _, _, _ = _transform_chunk(c, w, su.normalize)
-        rows = P[off:off + wt]
+        rows = P[loff:loff + nt]
         torch.mm(cc.T, Ycat, out=rows)
         if corr is not None:
             # the deflated data's projection: Xc^T Y - W_rows (S_st^T Y)
-            rows.sub_(Wf_st[off:off + wt] @ corr)
+            rows.sub_(Wf_st[loff:loff + nt] @ corr)
         del c, cc
-        off += wt
     return P
 
 
@@ -221,21 +252,22 @@ def _counts_gram_pass(su, sources, counts):
                     device=su.device)
     for k, base in sources:
         S_st, Wf_st = su.S_st[k], su.Wf_st[k]
-        off = 0
-        for chunk in su.loaders[k]():
-            c, _, wt = _put_chunk(chunk, su.dtype, su.device)
-            w = _weight_slice(su.weights.get(k), off, wt, su.dtype, su.device)
+        for c, off, lo, loff in _chunks(su, k):
+            nt = c.shape[1]
+            w = _weight_slice(su.weights.get(k), off + lo, nt, su.dtype,
+                              su.device)
             cc, _, _, _ = _transform_chunk(c, w, su.normalize)
             if S_st is not None:
-                cc.sub_(S_st @ Wf_st[off:off + wt].T)
-            roots = counts[:, base + off:base + off + wt].sqrt()
+                cc.sub_(S_st @ Wf_st[loff:loff + nt].T)
+            a = base + off + lo
+            roots = counts[:, a:a + nt].sqrt()
             sc = torch.empty_like(cc)
             for r in range(counts.shape[0]):
                 torch.mul(cc, roots[r], out=sc)
                 G[r].addmm_(sc, sc.T)
             del c, cc, sc
-            off += wt
-    return G
+    # the pass's one reduction over the space group
+    return _mesh.all_reduce(G, su.mesh, _mesh.SPACE_AXIS)
 
 
 # ---------------------------------------------------------- entry point
@@ -245,7 +277,8 @@ def bootstrap_spectra_streamed(
         on_right=False, block_size=1, replace=True, complexify=False,
         H=None, rotated=False, n_rot=0, power=1, tol=1e-8, seed=None,
         batch_size=None, subspace_iters=12, dtype=torch.float32,
-        device='cpu', deflate=None):
+        device='cpu', deflate=None, mesh=None, ensemble_axis='ensemble',
+        own=None):
     """One round of bootstrap spectra of a chunk-backed model.
 
     The keys of :func:`xmca_tpu_torch.stats.significance.
@@ -264,7 +297,10 @@ def bootstrap_spectra_streamed(
     pass per field); ``axis=1`` makes one counts pass per batch (and a
     rotated batch a projection pass over each field).  ``batch_size``
     sets the runs a batch (default ``min(n_runs, 16)``), and so the
-    passes.
+    passes.  ``mesh`` splits the runs over its ``ensemble_axis``; ``own``
+    (per field the full-layout columns this rank streams, the solve's
+    ``StreamedMCA.own``) marks a model sharded over the mesh's 'space'
+    axis, whose ``deflate`` loadings are the rank's rows.
 
     Returns ``(spectra (n_runs, n_out_modes), converged (n_runs,))`` as
     numpy; the rows of non-converged runs are to be dropped.
@@ -300,12 +336,25 @@ def bootstrap_spectra_streamed(
         else:
             _check(p['left'] if on_left else p['right'])
 
-    S_st, Wf_st = _deflation_stacks(keeps, deflate or {}, dtype, device)
+    kept = {k: None if keeps[k].all() else torch.as_tensor(
+        np.nonzero(keeps[k])[0], device=device) for k in keys}
+    if own is None:
+        p_full = {k: int(keeps[k].size) for k in keys}
+        kept_loc, cols, mesh_sp = kept, None, None
+    else:
+        p_full = {k: len(own[k]) for k in keys}
+        cols, kept_loc = {}, {}
+        for k in keys:
+            cols[k], mine = _packed_cols(keeps[k], own[k])
+            kept_loc[k] = torch.as_tensor(mine, device=device)
+        mesh_sp = mesh
+    S_st, Wf_st = _deflation_stacks(kept_loc, p_full, deflate or {}, dtype,
+                                    device)
     su = _Setup(
         loaders=loaders, keys=keys,
-        p_full={k: int(keeps[k].size) for k in keys},
-        kept={k: None if keeps[k].all() else torch.as_tensor(
-            np.nonzero(keeps[k])[0], device=device) for k in keys},
+        p_all={k: int(keeps[k].size) for k in keys}, p_full=p_full,
+        kept=kept,
+        kept_loc=kept_loc, cols=cols, mesh=mesh_sp,
         p=p, n_obs=int(n_obs), weights=weights or {}, normalize=normalize,
         dtype=dtype, device=device, eps=_fast._eps(dtype), H=H,
         complexify=complexify, bivariate=bivariate, on_left=on_left,
@@ -313,38 +362,49 @@ def bootstrap_spectra_streamed(
         kk=n_rot if rotated else n_out_modes, n_iter=subspace_iters,
         power=power, tol=tol, block_size=block_size, replace=replace,
         S_st=S_st, Wf_st=Wf_st)
-    seeds = run_seeds(seed, n_runs)
     if batch_size is None:
         batch_size = min(n_runs, 16)
     Gl = grams['left']
     Gr = grams['right'] if bivariate else Gl
-    if axis == 0 or not (on_left or on_right):
-        # a request that resamples nothing runs the (no-op) Gram path
-        var, conv = _bootstrap_axis0(su, Gl, Gr, seeds, batch_size)
-    else:
-        var, conv = _bootstrap_axis1(su, Gl, Gr, seeds, batch_size)
+    run = (_bootstrap_axis0 if axis == 0 or not (on_left or on_right)
+           else _bootstrap_axis1)
+    # a request that resamples nothing runs the (no-op) Gram path
+
+    def rows(seeds):
+        # a batch's runs share its passes: each rank batches its share
+        var, conv = run(su, Gl, Gr, seeds, batch_size)
+        flags = np.ones(len(var)) if conv is None else conv
+        return list(torch.as_tensor(np.concatenate(
+            [var, np.asarray(flags, np.float64)[:, None]], axis=1)))
+
+    with _mesh.space_context(mesh_sp):
+        out = torch.stack(list(_mesh.ensemble_map(
+            rows, run_seeds(seed, n_runs), mesh,
+            ensemble_axis))).cpu().numpy()
+    var, conv = out[:, :-1], out[:, -1] > 0.5
     spectra = var[:, :n_out_modes]
     if not rotated:
         conv = np.isfinite(spectra).all(axis=1)
     return spectra, conv
 
 
-def _deflation_stacks(keeps, deflate, dtype, device):
+def _deflation_stacks(kept_loc, p_full, deflate, dtype, device):
     """Per field the real stacks of the deflation factors: ``S_st (n,
-    2k)`` and ``W_st`` scattered to the full column layout (NaN columns
-    zero rows); None where the field is not deflated."""
+    2k)`` and ``W_st`` scattered to the full column layout (the rank's
+    own columns on a space mesh; NaN columns zero rows); None where the
+    field is not deflated."""
     S_st, Wf_st = {}, {}
-    for k, keep in keeps.items():
+    for k, kept in kept_loc.items():
         S_st[k] = Wf_st[k] = None
         if k not in deflate:
             continue
         S, W = deflate[k]
         S_st[k] = _reim_stack(S).to(dtype)
         W_st = _reim_stack(W).to(dtype)
-        if not keep.all():
-            full = torch.zeros((keep.size, W_st.shape[1]), dtype=dtype,
+        if kept is not None:
+            full = torch.zeros((p_full[k], W_st.shape[1]), dtype=dtype,
                                device=device)
-            full[torch.as_tensor(np.nonzero(keep)[0], device=device)] = W_st
+            full[kept] = W_st
             W_st = full
         Wf_st[k] = W_st
     return S_st, Wf_st
@@ -401,17 +461,17 @@ def _bootstrap_axis1(su, Gl, Gr, seeds, batch_size):
     both = su.on_left and su.on_right
     if both:
         pool_w = su.p['left'] + su.p['right']
-        sources = [('left', 0), ('right', su.p_full['left'])]
+        sources = [('left', 0), ('right', su.p_all['left'])]
     else:
         side = 'left' if su.on_left else 'right'
         pool_w = su.p[side]
         sources = [(side, 0)]
-    pool_full = sum(su.p_full[k] for k, _ in sources)
+    pool_full = sum(su.p_all[k] for k, _ in sources)
     # pool position -> position in the full layout the passes stream
     pool_kept = None
     if pool_w != pool_full:
         pool_kept = torch.cat([
-            base + (torch.arange(su.p_full[k], device=su.device)
+            base + (torch.arange(su.p_all[k], device=su.device)
                     if su.kept[k] is None else su.kept[k])
             for k, base in sources])
 
@@ -467,6 +527,26 @@ def _bootstrap_axis1(su, Gl, Gr, seeds, batch_size):
     return np.concatenate(var), (np.concatenate(conv) if conv else None)
 
 
+def _pool_rows(su, sources):
+    """Draws over the pool's packed columns -> the rows of the rank's
+    pool projection that hold them: the draws themselves without a space
+    mesh; on one, the draws that fall on the rank's own columns (a run's
+    rotation sums over the rows of every rank)."""
+    if su.cols is None:
+        return lambda i: i
+    base = {'left': 0, 'right': su.p['left'] if len(sources) == 2 else 0}
+    pos = np.concatenate([base[k] + su.cols[k] for k, _ in sources])
+    pool_w = sum(su.p[k] for k, _ in sources)
+    g2l = torch.full((pool_w,), -1, dtype=torch.long, device=su.device)
+    g2l[torch.as_tensor(pos, device=su.device)] = torch.arange(
+        len(pos), device=su.device)
+
+    def rows(i):
+        loc = g2l[i]
+        return loc[loc >= 0]
+    return rows
+
+
 def _axis1_project_rotate(su, runs, draws, sources, both):
     """The rotated tail of a space-axis batch: one projection pass over
     the pool's field(s) against the weights of the resampled side(s),
@@ -488,14 +568,15 @@ def _axis1_project_rotate(su, runs, draws, sources, both):
     P = parts[0] if len(parts) == 1 else torch.cat(parts)
     del parts
     p_l = su.p['left']
+    rows = _pool_rows(su, sources)
     if both:
-        Vl = [P[i[:p_l], r * kz:(r + 1) * kz]
+        Vl = [P[rows(i[:p_l]), r * kz:(r + 1) * kz]
               for r, (i, _) in enumerate(draws)]
-        Vr = [P[i[p_l:], (nb + r) * kz:(nb + r + 1) * kz]
+        Vr = [P[rows(i[p_l:]), (nb + r) * kz:(nb + r + 1) * kz]
               for r, (i, _) in enumerate(draws)]
         del P
         return _rotate_runs(su, s_b, Vl, Vr)
-    Vs = [P[i, r * kz:(r + 1) * kz] for r, (i, _) in enumerate(draws)]
+    Vs = [P[rows(i), r * kz:(r + 1) * kz] for r, (i, _) in enumerate(draws)]
     del P
     other = None
     if su.bivariate:

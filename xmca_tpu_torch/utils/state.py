@@ -47,7 +47,9 @@ def install_state(model, state, hilbert=None):
 
     A port model receives its fields and singular vectors as tensors on
     its device, plus the optional Hilbert operator ``hilbert`` (numpy;
-    otherwise built on first use).  Any other model is taken to be the
+    otherwise built on first use); on a mesh with a 'space' axis (set
+    before the install) each rank keeps its block of the fields' columns
+    and its rows of the singular vectors.  Any other model is taken to be the
     JAX package's and receives numpy arrays.
     """
     from xmca_tpu_torch.api.array import MCA
@@ -66,6 +68,8 @@ def install_state(model, state, hilbert=None):
                                   for k, v in state[name].items()})
         if hilbert is not None:
             model._hilbert = torch.as_tensor(np.array(hilbert), device=dev)
+        model._shard_cols = None
+        model._shard_solution()
     else:
         model._V = {k: np.array(v) for k, v in state['_V'].items()}
         model._fields = {k: np.array(v) for k, v in state['_fields'].items()}
