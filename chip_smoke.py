@@ -111,7 +111,14 @@
    ranks of this script (``--mesh-rank``) sharing the card over gloo,
    mesh (2, 2), each with half of each field's columns, held to it at
    MESH_TOL, with exactly 2 x 8 and 2 x 4 launches a rank; each rank's
-   walls, collectives and peak memory.
+   walls, collectives and peak memory; the flow also runs
+   ``bootstrapping(4, axis=1)`` of both fields (each rank resamples its
+   own columns) and ``bootstrapping(4)`` with its runs split over the
+   'space' axis (each rank gathers the fields), each phase's wall a run,
+   collectives, bytes and peak memory printed, no kernel launched;
+18. ``int_fields_small``: an int32 field pair (256 x 2 x 512) on the card
+   through ``normalize -> solve(complexify=True) -> rotate(4)`` and the
+   getters, equal bit for bit to its float32 copy's model.
 
 Any failure exits non-zero; nothing is caught.  The last lines are the
 kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
@@ -1150,6 +1157,42 @@ def small_results(torch):
             _check(all(v <= tol for v in errs.values()),
                    'small {} model: card ({}) and CPU disagree'.format(
                        solve, label))
+
+
+def int_fields_small(torch):
+    """Integer fields on the card: an int32 field pair (256 x 2 x (16 x
+    32), the small fields x 10 rounded) promoted to float32 at ingest,
+    its model equal bit for bit to the model of its float32 copy."""
+    import numpy as np
+    from xmca_tpu_torch.api.array import MCA
+    fields = [np.rint(10 * np.asarray(f.values)).astype(np.int32)
+              for f in make_fields(256, 16, 32, seed0=31)]
+    models = []
+    for data in (fields, [f.astype(np.float32) for f in fields]):
+        m = MCA(*data, device='cuda')
+        m.set_solver(truncate=4)
+        m.normalize()
+        m.solve(complexify=True)
+        m.rotate(4)
+        models.append(m)
+    got, ref = models
+    new = fields[0][:16]
+    pairs = [('singular_values', got.singular_values(), ref.singular_values()),
+             ('variance', got.variance(), ref.variance()),
+             ('predict', got.predict(left=new)['left'],
+              ref.predict(left=new.astype(np.float32))['left'])]
+    for g in ('eofs', 'pcs'):
+        for k in ('left', 'right'):
+            pairs.append(('{}[{}]'.format(g, k), getattr(got, g)()[k],
+                          getattr(ref, g)()[k]))
+    unequal = [name for name, a, b in pairs
+               if not np.array_equal(a, b, equal_nan=True)]
+    print('int_fields_small: int32 fields (256 x 2 x 512) ingested as {}; '
+          'results unequal to the float32 copy\'s: {}'.format(
+              got._fields['left'].dtype, unequal or 'none'))
+    _check(not unequal and got._fields['left'].dtype == torch.complex64,
+           'int_fields_small: the int32 model differs from the float32 '
+           'one in {}'.format(unequal))
 
 
 def _kept(v):
@@ -2747,7 +2790,16 @@ N_MESH_RUNS_PM = 8        # rule_n after promax: cut for time only
 N_MESH_RUNS_GEN = 4       # 'normal16' rule_n (the field kernel): cut for
                           # time only
 N_MESH_BOOT = 4           # bootstrap runs: cut for time only
+N_MESH_BOOT_NEW = 4       # runs of the column resample and of the runs
+                          # split over the space axis: cut for time only
+MESH_COL_BLOCK = N_LON    # the column resample's block: one latitude row
+                          # of the grid (divides the packed 2 x 100000)
 MESH_TIMEOUT_S = 600      # the ranks' process-group timeout and wall limit
+# the bootstrap phases a mesh flow measures on their own: their walls,
+# collectives and peak device memory above what was resident before them
+MESH_PHASES = ('bootstrapping axis=1', 'bootstrapping ensemble_axis=space')
+_PEAK = {'seen': 0}       # the largest device peak of a flow, across the
+                          # resets of its measured phases
 
 
 def _free_port():
@@ -2767,10 +2819,14 @@ def mesh_flow(torch, left, right, mesh, folder):
     1e-8); ``rotate(10, power=4)`` -> ``rule_n(8)``; the array-level
     save (``info.xmca`` by the writing rank) and load into a fresh model on
     the same mesh; ``MCA.from_chunks`` over 16384-column chunks ->
-    ``solve(complexify=True)`` -> ``bootstrapping(4)``.  Returns
-    ``(results, walls, launches)``: host arrays, host seconds per stage
-    (each ending in a device synchronize) and the kernel launches of each
-    ``rule_n``."""
+    ``solve(complexify=True)`` -> ``bootstrapping(4)``; between the first
+    bootstrap and the promax, ``bootstrapping(4, axis=1)`` of both fields
+    in blocks of one grid row and ``bootstrapping(4)`` with its runs split
+    over the 'space' axis (MESH_PHASES).  Returns ``(results, walls,
+    launches, phases)``: host arrays, host seconds per stage (each ending
+    in a device synchronize), the kernel launches of each ``rule_n``, and
+    each of MESH_PHASES' collectives, bytes and peak device memory above
+    the memory allocated before it."""
     import os
     import numpy as np
     from xmca_tpu_torch.api.array import MCA
@@ -2786,6 +2842,24 @@ def mesh_flow(torch, left, right, mesh, folder):
         _build.reset_launch_counts()
         res = stage(name, fn)
         launches[name] = _counts(_build.launch_counts())
+        return res
+
+    phases = {}
+
+    def measured(name, fn):
+        coll = pmesh.collective_counts()
+        _PEAK['seen'] = max(_PEAK['seen'], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        res = stage(name, fn)
+        now = pmesh.collective_counts()
+        phases[name] = {
+            'collectives': now.get('all_reduce', 0) - coll.get('all_reduce',
+                                                               0),
+            'bytes': now.get('bytes', 0) - coll.get('bytes', 0),
+            'peak_gb': (torch.cuda.max_memory_allocated() - before) / 1e9,
+            'launches': _counts(_build.launch_counts())}
         return res
 
     m = stage('ingest', lambda: xMCA(left, right, device='cuda'))
@@ -2810,6 +2884,15 @@ def mesh_flow(torch, left, right, mesh, folder):
     m.set_solver(ensemble_tol=1e-8)
     out['boot'] = stage('bootstrapping', lambda: _vals(m.bootstrapping(
         N_MESH_BOOT, n_modes=N_ROT, block_size=BOOT_BLOCK, seed=SEED)))
+    out['boot_axis1'] = measured(MESH_PHASES[0], lambda: _vals(
+        m.bootstrapping(N_MESH_BOOT_NEW, n_modes=N_ROT, axis=1,
+                        on_left=True, on_right=True,
+                        block_size=MESH_COL_BLOCK, seed=SEED)))
+    m.set_solver(ensemble_axis=pmesh.SPACE_AXIS)
+    out['boot_space'] = measured(MESH_PHASES[1], lambda: _vals(
+        m.bootstrapping(N_MESH_BOOT_NEW, n_modes=N_ROT,
+                        block_size=BOOT_BLOCK, seed=SEED)))
+    m.set_solver(ensemble_axis=pmesh.ENSEMBLE_AXIS)
     stage('rotate power=4', lambda: m.rotate(N_ROT, power=4))
     out['expvar_pm'] = _vals(m.explained_variance(N_ROT))
     out['var_sum_pm'] = float(_vals(m.variance()).sum())
@@ -2859,7 +2942,7 @@ def mesh_flow(torch, left, right, mesh, folder):
                          seed=SEED)))
     del mc
     torch.cuda.empty_cache()
-    return out, walls, launches
+    return out, walls, launches, phases
 
 
 def _flat(out):
@@ -2880,6 +2963,8 @@ def _per_run(label, walls):
     w['rule_n normal16 a run'] = w.pop('rule_n normal16') / N_MESH_RUNS_GEN
     w['rule_n power=4 a run'] = w.pop('rule_n power=4') / N_MESH_RUNS_PM
     w['bootstrapping a run'] = w.pop('bootstrapping') / N_MESH_BOOT
+    for name in MESH_PHASES:
+        w[name + ' a run'] = w.pop(name) / N_MESH_BOOT_NEW
     w['streamed bootstrapping a run'] = (w.pop('streamed bootstrapping')
                                          / N_MESH_BOOT)
     _print_walls(label, w)
@@ -2929,6 +3014,9 @@ def _mesh_vs(got, ref):
         'null normal16': null(got['null_gen'], ref['null_gen'],
                               got['var_sum'] / ref['var_sum']),
         'boot': boot(got['boot'], ref['boot']),
+        'boot axis=1': boot(got['boot_axis1'], ref['boot_axis1']),
+        'boot ensemble_axis=space': boot(got['boot_space'],
+                                         ref['boot_space']),
         'variance power=4': per_mode(got['expvar_pm'], ref['expvar_pm']),
         'null power=4': null(got['null_pm'], ref['null_pm'],
                              got['var_sum_pm'] / ref['var_sum_pm']),
@@ -2947,11 +3035,44 @@ def _mesh_vs(got, ref):
 MESH_TOL = {'svals': STREAM_TOL['svals'], 'eofs': STREAM_TOL['eofs'],
             'variance': ROT_STOP_TOL, 'null': STREAM_TOL['null'],
             'null normal16': STREAM_TOL['null'],
-            'boot': ROT_STOP_TOL, 'variance power=4': ROT_STOP_TOL,
+            'boot': ROT_STOP_TOL, 'boot axis=1': ROT_STOP_TOL,
+            'boot ensemble_axis=space': ROT_STOP_TOL,
+            'variance power=4': ROT_STOP_TOL,
             'null power=4': STREAM_TOL['null'], 'loaded svals': 0.0,
             'loaded eofs': 0.0, 'streamed svals': STREAM_TOL['svals'],
             'streamed eofs': STREAM_TOL['eofs'],
             'streamed boot': STREAM_TOL['svals']}
+
+
+# the results every (2, 2) rank pickles (rank 0 pickles all of them)
+_EVERY_RANK = ('svals', 'null', 'boot', 'boot_axis1', 'boot_space',
+               'stream_svals')
+
+
+def _peak_reset(torch):
+    torch.cuda.reset_peak_memory_stats()
+    _PEAK['seen'] = 0
+
+
+def _peak(torch):
+    """The device's peak allocation since :func:`_peak_reset`, across the
+    resets of mesh_flow's measured phases."""
+    return max(torch.cuda.max_memory_allocated(), _PEAK['seen'])
+
+
+def _print_phases(label, phases, walls):
+    """Each of MESH_PHASES' wall a run, collectives, bytes and peak."""
+    for name in MESH_PHASES:
+        ph = phases[name]
+        print('mesh_path {} {}({}): {:.4f} s a run, {} collectives, {:.4f} '
+              'GB reduced, peak +{:.2f} GB above the resident, launches {}'
+              .format(label, name, N_MESH_BOOT_NEW,
+                      walls[name] / N_MESH_BOOT_NEW, ph['collectives'],
+                      ph['bytes'] / 1e9, ph['peak_gb'],
+                      {k: v for k, v in ph['launches'].items() if v}))
+        _check(not any(ph['launches'].values()),
+               'mesh_path {}: {} launched {}'.format(label, name,
+                                                     ph['launches']))
 
 
 def mesh_rank_main(rank, port, folder):
@@ -2975,16 +3096,16 @@ def mesh_rank_main(rank, port, folder):
     left, right = make_fields(N_OBS, N_LAT, N_LON)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    _peak_reset(torch)
     pmesh.reset_collective_counts()
-    out, walls, launches = mesh_flow(torch, left, right, mesh, folder)
-    res = {'walls': walls, 'launches': launches,
+    out, walls, launches, phases = mesh_flow(torch, left, right, mesh, folder)
+    res = {'walls': walls, 'launches': launches, 'phases': phases,
            'collectives': pmesh.collective_counts(),
-           'peak_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
+           'peak_gb': (_peak(torch) - base) / 1e9,
            'coordinate': (pmesh.axis_rank(mesh, 'ensemble'),
                           pmesh.axis_rank(mesh, 'space')),
            'out': out if rank == 0 else {
-               k: out[k] for k in ('svals', 'null', 'boot', 'stream_svals')}}
+               k: out[k] for k in _EVERY_RANK}}
     with open(os.path.join(folder, 'rank%d.pkl' % rank), 'wb') as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
@@ -3031,8 +3152,11 @@ def mesh_path(torch, left, right, card):
     half of each field's columns, held to the unsharded flow by MESH_TOL,
     with exactly 2 x 8 and 2 x 4 launches of syrk and sign_field_sums and
     2 x 2 of surrogate_field a rank (each run whole on its rank, the two
-    space ranks of an ensemble group running the same runs).  One card shows the
-    sharded arithmetic and each rank's cost, not scaling."""
+    space ranks of an ensemble group running the same runs).  The flow's
+    column resample and its runs split over the space axis are held the
+    same way, each of them printed with its wall a run, collectives,
+    bytes and peak memory (MESH_PHASES).  One card shows the sharded
+    arithmetic and each rank's cost, not scaling."""
     import os
     import shutil
     import tempfile
@@ -3049,20 +3173,20 @@ def mesh_path(torch, left, right, card):
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ref, ref_walls, ref_launches = mesh_flow(torch, left, right, None,
-                                             folders['ref'])
-    ref_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    _peak_reset(torch)
+    ref, ref_walls, ref_launches, ref_phases = mesh_flow(
+        torch, left, right, None, folders['ref'])
+    ref_peak = (_peak(torch) - base) / 1e9
 
     dist.init_process_group('nccl', init_method='tcp://localhost:%d'
                             % _free_port(), world_size=1, rank=0,
                             timeout=timedelta(seconds=MESH_TIMEOUT_S))
     one = pmesh.make_mesh(1, 1)
     pmesh.reset_collective_counts()
-    torch.cuda.reset_peak_memory_stats()
-    got, walls, launches = mesh_flow(torch, left, right, one,
-                                     folders['one'])
-    one_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    _peak_reset(torch)
+    got, walls, launches, phases = mesh_flow(torch, left, right, one,
+                                             folders['one'])
+    one_peak = (_peak(torch) - base) / 1e9
     one_coll = pmesh.collective_counts()
     dist.destroy_process_group()
     unequal = [name for (name, a), (_, b) in zip(_flat(got), _flat(ref))
@@ -3071,6 +3195,8 @@ def mesh_path(torch, left, right, card):
              '{}'.format(N_OBS, N_LAT * N_LON, ref_peak, card), ref_walls)
     _per_run('mesh_path (a) world of one, NCCL, mesh (1, 1) (peak +{:.2f} '
              'GB, collectives {})'.format(one_peak, one_coll), walls)
+    _print_phases('unsharded', ref_phases, ref_walls)
+    _print_phases('(a)', phases, walls)
     print('mesh_path (a): launches {} (unsharded {}); results unequal to '
           'the unsharded flow: {}'.format(launches, ref_launches,
                                           unequal or 'none'))
@@ -3094,6 +3220,7 @@ def mesh_path(torch, left, right, card):
                  '+{:.2f} GB; collectives {}, launches {})'.format(
                      r, res['coordinate'], MESH_SHAPE, res['peak_gb'],
                      res['collectives'], res['launches']), res['walls'])
+        _print_phases('(b) rank {}'.format(r), res['phases'], res['walls'])
     print('mesh_path (b): 4 ranks in {:.1f} s (spawn, fields and flow); '
           'against the unsharded flow: {}'.format(wall, ', '.join(
               '{} {:.2e} (tol {:g})'.format(k, v, MESH_TOL[k])
@@ -3101,7 +3228,7 @@ def mesh_path(torch, left, right, card):
     bad = {k: v for k, v in errs.items() if not v <= MESH_TOL[k]}
     _check(not bad, 'mesh_path (b): the (2, 2) mesh is off: {}'.format(bad))
     for r, res in enumerate(ranks):
-        for k in ('svals', 'null', 'boot', 'stream_svals'):
+        for k in _EVERY_RANK:
             _check(np.array_equal(res['out'][k], ranks[0]['out'][k]),
                    'mesh_path (b): rank {} disagrees on {}'.format(r, k))
         for name, n_runs in (('rule_n', N_MESH_RUNS),
@@ -3227,6 +3354,7 @@ def main():
     _check(sv_err <= 1e-4 and var_err <= 1e-3 and q_err <= 2e-2,
            'card and CPU disagree on the small path')
     small_results(torch)
+    int_fields_small(torch)
 
     gen_launches = gen_path(torch)
     gen_small(torch)

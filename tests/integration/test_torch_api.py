@@ -23,11 +23,17 @@
   'iterative', one block spanning the axis, exact spectrum) of the port's
   own solve and of the JAX solution carried into it, against JAX at
   1e-7; ``extend='foo'`` raises JAX's ``ValueError``.
+* F5-F7: integer and bool fields solve as the JAX package's integer run
+  (f32 tolerance) and bit for bit as their float32 copies; a
+  non-integer promax power is kept and equals JAX's own ``promax`` at
+  that power; ``rotate`` beyond the kept modes raises ``ValueError``
+  and changes nothing (JAX raises its misleading ``RuntimeError``).
 """
 import re
 
 import numpy as np
 import pytest
+import torch
 
 from tests.conftest import align_modes
 from xmca_tpu.array import MCA as JMCA
@@ -501,3 +507,169 @@ def test_invalid_extension_raises_jax_error():
         np.testing.assert_allclose(_values(tm.singular_values(3)),
                                    _values(jm.singular_values(3)),
                                    rtol=1e-9)
+
+
+# ------------------------------------------------------------- F5-F7
+def _int_arrays(kind):
+    """The test grid's fields as integer (x 10, rounded) or bool data."""
+    arrays, coords = _arrays(2)
+    if kind == 'bool':
+        return [a > 0 for a in arrays], coords
+    return [np.rint(10 * a).astype(kind) for a in arrays], coords
+
+
+def _vec_err(got, ref):
+    """Largest difference of aligned mode vectors, relative to the
+    reference's largest entry."""
+    got, ref = (np.asarray(x).reshape(-1, np.shape(x)[-1]) for x in (got,
+                                                                       ref))
+    return np.abs(align_modes(got, ref) - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize('api', ['mca', 'xmca'])
+@pytest.mark.parametrize('kind', ['int32', 'int64', 'bool'])
+def test_integer_fields_solve_as_jax(kind, api):
+    """F5: integer and bool fields are promoted to float32 at ingest and
+    solve, complexify and rotate as the JAX package's integer run
+    (``jnp.mean`` promotes int32 and bool to float32, and int64 to
+    float64 under x64): spectrum 1e-5 relative, EOFs and PCs (unrotated
+    and rotated, aligned) 1e-4 of their largest entry, rotated variance
+    1e-5, with the rotation stopped at the f32 floor (tol 1e-5) in both.
+    The integer model equals the port's model of the float32 copy bit
+    for bit, and ``predict`` takes integer new data."""
+    arrays, coords = _int_arrays(kind)
+    floats = [a.astype(np.float32) for a in arrays]
+    models = [_build(pkg, api, data, coords)
+              for pkg, data in (('jax', arrays), ('torch', arrays),
+                                ('torch', floats))]
+    for m in models:
+        m.normalize()
+        m.solve(complexify=True)
+        m.rotate(3, tol=1e-5)
+    jm, tm, fm = models
+    assert tm._fields['left'].dtype == torch.complex64
+    np.testing.assert_allclose(_values(tm.singular_values(6)),
+                               _values(jm.singular_values(6)), rtol=1e-5)
+    np.testing.assert_allclose(_values(tm.variance(3)),
+                               _values(jm.variance(3)), rtol=1e-5)
+    for getter in ('eofs', 'pcs'):
+        for rotated in (False, True):
+            got = getattr(tm, getter)(3, rotated=rotated)
+            ref = getattr(jm, getter)(3, rotated=rotated)
+            same = getattr(fm, getter)(3, rotated=rotated)
+            for k in ('left', 'right'):
+                assert _vec_err(_values(got[k]), _values(ref[k])) < 1e-4
+                np.testing.assert_array_equal(_values(got[k]),
+                                              _values(same[k]))
+    new = arrays[0][:5]
+    fnew = floats[0][:5]
+    if api == 'xmca':
+        t5 = dict(coords, time=coords['time'][:5])
+        new, fnew = (txr.DataArray(x, dims=('time', 'lat', 'lon'),
+                                   coords=t5) for x in (new, fnew))
+    np.testing.assert_array_equal(_values(tm.predict(left=new)['left']),
+                                  _values(fm.predict(left=fnew)['left']))
+
+
+def test_integer_chunks_solve_as_float32():
+    """F5 out of core: loaders that yield integer chunks solve in float32
+    (``core.streaming.stream_dtype``), equal to float32 chunks of the
+    same values."""
+    arrays, _ = _int_arrays('int64')
+    flat = [a.reshape(N_OBS, -1) for a in arrays]
+
+    def model(dtype):
+        loaders = [(lambda x=x: [x[:, :70].astype(dtype),
+                                 x[:, 70:].astype(dtype)]) for x in flat]
+        m = TMCA.from_chunks(*loaders, n_observations=N_OBS,
+                             left_shape=(8, 20), right_shape=(8, 20),
+                             device='cpu')
+        m.set_solver(truncate=4)
+        m.solve(complexify=True)
+        return m
+    got, ref = model(np.int64), model(np.float32)
+    assert got._stream_dtype == torch.float32
+    np.testing.assert_array_equal(got.singular_values(), ref.singular_values())
+    np.testing.assert_array_equal(got.eofs(3)['left'], ref.eofs(3)['left'])
+
+
+def test_float16_fields_stay_refused():
+    """float16 is refused by both packages (the port at its first
+    factorization), as before the integer promotion."""
+    arrays, _ = _arrays(2)
+    half = [a.astype(np.float16) for a in arrays]
+    with pytest.raises(NotImplementedError):
+        JMCA(*half).solve()
+    with pytest.raises(NotImplementedError):
+        TMCA(*half, device='cpu').solve()
+
+
+def _loadings_of(tm, n_rot):
+    """The port model's unrotated loading stack ``[V_l; V_r] sqrt(s)``."""
+    V = [tm._V[k][:, :n_rot].numpy() for k in ('left', 'right')]
+    return np.concatenate(V) * np.sqrt(tm.singular_values(n_rot))
+
+
+def test_float_promax_power_is_kept():
+    """F6, decided: the port keeps a non-integer promax power.
+    ``rotate(3, power=2.5)`` equals the JAX package's own
+    ``core.rotation.promax(L, power=2.5)`` on the port's loadings (1e-8:
+    both float64), the power JAX's ``rule_n`` and ``bootstrapping`` run;
+    JAX's ``rotate`` truncates it (its variance is that of power 2) and
+    stores 2.5.  An integer power agrees with JAX's ``rotate`` (1e-7 on
+    the rotated variance, 1e-6 on aligned rotated EOFs)."""
+    import jax.numpy as jnp
+    from xmca_tpu.core.rotation import promax as jpromax
+    jm, tm = _pair('mca', 2, cplx=False, power=0)
+    L = _loadings_of(tm, 3)
+    tm.rotate(3, power=2.5)
+    B, R, _, conv, _ = jpromax(jnp.asarray(L), power=2.5, max_iter=1000,
+                               tol=1e-8)
+    assert bool(conv)
+    B = np.asarray(B)
+    n_left = tm._V['left'].shape[0]
+    var = (np.linalg.norm(B[:n_left], axis=0)
+           * np.linalg.norm(B[n_left:], axis=0))
+    np.testing.assert_allclose(tm._variance, var, rtol=1e-8)
+    np.testing.assert_allclose(tm.rotation_matrix(), np.asarray(R),
+                               atol=1e-8)
+    assert tm._analysis['power'] == 2.5
+    jm.rotate(3, power=2.5)
+    assert jm._analysis['power'] == 2.5
+    j2 = _values(jm.variance(3))
+    jm.rotate(3, power=2)
+    np.testing.assert_allclose(j2, _values(jm.variance(3)), rtol=1e-12)
+    assert np.abs(_values(tm.variance(3)) / j2 - 1).max() > 1e-6
+    tm.rotate(3, power=2)
+    np.testing.assert_allclose(_values(tm.variance(3)),
+                               _values(jm.variance(3)), rtol=1e-7)
+    assert _vec_err(tm.eofs(3)['left'], _values(jm.eofs(3)['left'])) < 1e-6
+
+
+@pytest.mark.parametrize('api', ['mca', 'xmca'])
+def test_rotate_beyond_kept_modes_raises_value_error(api):
+    """F7, decided: ``rotate(n_rot)`` with more modes than the solve kept
+    raises ``ValueError`` before any state changes; the JAX package
+    raises its misleading 'did not converge' ``RuntimeError`` (it reads
+    its converged flag at the wrong offset)."""
+    jm, tm = _pair(api, 2, truncate=5)
+    for m in (jm, tm):
+        m.rotate(3, power=2)
+    before = {g: _values(getattr(tm, g)()) for g in ('singular_values',
+                                                     'variance')}
+    before_eofs = _values(tm.eofs()['left'])
+    analysis = dict(tm._analysis)
+    R = tm.rotation_matrix()
+    with pytest.raises(RuntimeError, match='did not converge'):
+        jm.rotate(6)
+    for n_rot in (6, 9):
+        with pytest.raises(ValueError, match='exceeds the 5 modes'):
+            tm.rotate(n_rot)
+    assert tm._analysis == analysis
+    np.testing.assert_array_equal(tm.rotation_matrix(), R)
+    for g, v in before.items():
+        np.testing.assert_array_equal(_values(getattr(tm, g)()), v)
+    np.testing.assert_array_equal(_values(tm.eofs()['left']), before_eofs)
+    tm.rotate(5)
+    assert tm._analysis['n_rot'] == 5
+

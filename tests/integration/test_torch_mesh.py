@@ -19,7 +19,12 @@ between the packages).  Ensemble-only meshes equal the unsharded port
 exactly.  ``__graft_entry__.dryrun_multichip``'s flow runs at its size
 (256 x 32 x 128) on the (2, 2) mesh with its thresholds, and so do the
 mesh paths the JAX tests leave out: boundary extension, the iterative
-in-memory bootstrap and the streamed bootstrap on both axes.  On a
+in-memory bootstrap and the streamed bootstrap on both axes.  A JAX
+solution carried into port models bootstraps with one block spanning
+the time axis or the columns of the space-sharded fields, and with its
+runs split over the space axis, against JAX on (2, 2) and (1, 4); the
+sharded column resamples (each rank its draws on its own columns) and
+the runs split over the space axis against the unsharded port.  On a
 world-1 gloo group in this process: ``make_mesh``'s ``ValueError``,
 ``distribute_array``'s shards and its uneven-width ``ValueError``, and a
 (1, 1) mesh equal to no mesh.
@@ -168,22 +173,94 @@ def _case_bootstrap(mesh):
             'sharded': m.bootstrapping(8, 3, disable_progress=True, seed=5)}
 
 
-def _case_boot_state(mesh, state):
-    """A JAX solution carried into a port model on the mesh; one block
-    spanning the time axis, exact spectrum, tol 1e-8 (comparable to
-    JAX's); and the in-memory space axis, which the port refuses."""
+# the carried-state bootstraps: (ensemble_axis, axis, on_left, on_right,
+# strategy); one block spans the resampled axis (the time axis, or the
+# concatenation of the resampled fields' columns), so every run resamples
+# nothing and both packages solve the same data
+N_COLS = 160                   # the grid fields' packed columns
+BOOT_STATE = {
+    'standard': ('ensemble', 0, True, False, 'standard'),
+    'iterative': ('ensemble', 0, True, False, 'iterative'),
+    'axis1_left': ('ensemble', 1, True, False, 'standard'),
+    'axis1_right': ('ensemble', 1, False, True, 'standard'),
+    'axis1_both': ('ensemble', 1, True, True, 'standard'),
+    'axis1_both_iterative': ('ensemble', 1, True, True, 'iterative'),
+    'space_standard': ('space', 0, True, False, 'standard'),
+    'space_iterative': ('space', 0, True, False, 'iterative'),
+}
+
+
+def _boot_state_kw(name):
+    ens, axis, on_left, on_right, strategy = BOOT_STATE[name]
+    span = N_OBS if axis == 0 else N_COLS * (on_left + on_right)
+    return ens, dict(n_modes=3, axis=axis, on_left=on_left,
+                     on_right=on_right, block_size=span, strategy=strategy,
+                     seed=4)
+
+
+def _case_boot_state(mesh, state, names):
+    """A JAX solution carried into a port model on the mesh: the
+    bootstraps ``names`` of BOOT_STATE, exact spectrum, tol 1e-8
+    (comparable to JAX's)."""
     out = {}
-    for strategy in ('standard', 'iterative'):
+    for name in names:
+        ens, kw = _boot_state_kw(name)
         m = TMCA(device='cpu')
-        m.set_solver(mesh=mesh, spectrum='exact', ensemble_tol=1e-8)
+        m.set_solver(mesh=mesh, ensemble_axis=ens, spectrum='exact',
+                     ensemble_tol=1e-8)
         install_state(m, state)
-        out[strategy] = m.bootstrapping(3, n_modes=3, block_size=N_OBS,
-                                        strategy=strategy, seed=4)
-    try:
-        m.bootstrapping(2, n_modes=2, axis=1)
-        out['axis1'] = 'ran'
-    except NotImplementedError as err:
-        out['axis1'] = str(err)
+        out[name] = m.bootstrapping(3, **kw)
+    return out
+
+
+def _boot_axis_model(mesh, extend=False):
+    """A normalized, complexified, promax-rotated model of the grid
+    fields (a truncated fold solve; ``extend``: a dense extended one) on
+    ``mesh`` or on none."""
+    m = TMCA(*_grid(seeds=(12, 13)), device='cpu')
+    m.set_solver(mesh=mesh, **({} if extend else {'truncate': 6}))
+    m.normalize()
+    m.solve(complexify=True, extend=extend, period=12)
+    m.rotate(4, power=2)
+    return m
+
+
+# the space-sharded bootstraps held against the unsharded port: name ->
+# (extend, ensemble_axis, bootstrapping's keywords)
+BOOT_AXIS = {
+    'left': (False, 'ensemble', dict(axis=1, block_size=1)),
+    'right': (False, 'ensemble', dict(axis=1, on_left=False, on_right=True,
+                                      block_size=4)),
+    # two blocks of half the field: a run that draws one twice leaves
+    # the ranks of the other half with no column
+    'left_halves': (False, 'ensemble', dict(axis=1, block_size=80)),
+    'both': (False, 'ensemble', dict(axis=1, on_right=True, block_size=1)),
+    'both_perm': (False, 'ensemble', dict(axis=1, on_right=True,
+                                          block_size=8, replace=False)),
+    'left_iterative': (False, 'ensemble', dict(axis=1, block_size=1,
+                                               strategy='iterative')),
+    'both_iterative': (False, 'ensemble', dict(axis=1, on_right=True,
+                                               block_size=2,
+                                               strategy='iterative')),
+    'both_extend': ('exp', 'ensemble', dict(axis=1, on_right=True,
+                                            block_size=2)),
+    'space_standard': (False, 'space', dict(block_size=2)),
+    'space_iterative': (False, 'space', dict(block_size=2,
+                                             strategy='iterative')),
+    'space_axis1': (False, 'space', dict(axis=1, on_right=True,
+                                         block_size=4)),
+}
+
+
+def _boot_axis_runs(mesh):
+    """Every BOOT_AXIS bootstrap (4 runs, 3 modes, seed 21)."""
+    models, out = {}, {}
+    for name, (extend, ens, kw) in BOOT_AXIS.items():
+        if extend not in models:
+            models[extend] = _boot_axis_model(mesh, extend)
+        m = models[extend]
+        m.set_solver(ensemble_axis=ens)
+        out[name] = m.bootstrapping(4, n_modes=3, seed=21, **kw)
     return out
 
 
@@ -384,7 +461,13 @@ def _rank_main(rank, port, inputs, out_dir):
         'solve': _case_solve(meshes['space']),
         'rule_n': _case_rule_n(meshes['ensemble']),
         'bootstrap': _case_bootstrap(meshes['ensemble']),
-        'boot_state': _case_boot_state(meshes['both'], inp['state']),
+        'boot_state': _case_boot_state(meshes['both'], inp['state'],
+                                       BOOT_STATE),
+        'boot_state_space': _case_boot_state(
+            meshes['space'], inp['state'],
+            [k for k in BOOT_STATE if k not in ('standard', 'iterative')]),
+        'boot_axis': {name: _boot_axis_runs(meshes[name])
+                      for name in ('space', 'both')},
         '2d': _case_2d(meshes['both']),
         'fast_trunc': _case_fast_trunc(meshes['space'], inp['omega3']),
         'fast_rot': _case_fast_rot(meshes['both'], inp['omega4']),
@@ -538,21 +621,55 @@ def test_ensemble_sharded_bootstrap_matches_unsharded(ranks):
         plain, rtol=1e-9)
 
 
-@pytest.mark.parametrize('strategy', ['standard', 'iterative'])
-def test_mesh_bootstrap_of_carried_state_matches_jax(ranks, strategy):
+_STATE_CASES = (['standard', 'iterative']
+                + ['{}-{}'.format(k, mesh) for k in BOOT_STATE
+                   if k not in ('standard', 'iterative')
+                   for mesh in ('both', 'space')])
+
+
+@pytest.mark.parametrize('case', _STATE_CASES)
+def test_mesh_bootstrap_of_carried_state_matches_jax(ranks, case):
     """A JAX solution (complexified, promax) carried into port models on
-    (2, 2): the bootstrap with one block spanning the time axis and the
-    exact spectrum equals JAX's on the same mesh shape (1e-7, the
-    unsharded port's tolerance against JAX); the space axis of an
-    in-memory sharded model raises ``NotImplementedError``."""
+    (2, 2) and (1, 4): the bootstrap with one block spanning the
+    resampled axis and the exact spectrum equals JAX's on the same mesh
+    shape (1e-7, the unsharded port's tolerance against JAX): the time
+    axis ('standard', 'iterative'), the column axis of the space-sharded
+    model (the left field, the right, both; 'iterative' with both), and
+    the runs split over the space axis itself."""
+    name, _, mesh = case.partition('-')
+    mesh = mesh or 'both'
+    ens, kw = _boot_state_kw(name)
     jm = ranks['jax_model']
-    jm.set_solver(mesh=_jax_mesh(MESHES['both']), spectrum='exact',
-                  ensemble_tol=1e-8)
-    ref = np.asarray(jm.bootstrapping(3, n_modes=3, block_size=N_OBS,
-                                      strategy=strategy, seed=4))
-    got = _same_on_every_rank(ranks['ranks'], 'boot_state', strategy)
+    jm.set_solver(mesh=_jax_mesh(MESHES[mesh]), ensemble_axis=ens,
+                  spectrum='exact', ensemble_tol=1e-8)
+    ref = np.asarray(jm.bootstrapping(3, **kw))
+    key = 'boot_state' if mesh == 'both' else 'boot_state_space'
+    got = _same_on_every_rank(ranks['ranks'], key, name)
+    assert (ref != 0).any()
     np.testing.assert_allclose(got, ref, rtol=1e-7)
-    assert 'bootstrapping(axis=1)' in ranks['ranks'][0]['boot_state']['axis1']
+
+
+_UNSHARDED = {}                 # the unsharded port's BOOT_AXIS runs
+
+
+@pytest.mark.parametrize('mesh', ['space', 'both'])
+@pytest.mark.parametrize('run', list(BOOT_AXIS))
+def test_mesh_bootstrap_axis1_and_space_split_match_unsharded(ranks, run,
+                                                              mesh):
+    """On (1, 4) and (2, 2), a space-sharded model's column resamples
+    (each rank its draws on its own columns: the left field, the right,
+    both, blocks of 1-8, without replacement, iterative, extended) and
+    its runs split over the space axis (standard, iterative, a column
+    resample) against the unsharded port run for run (1e-8: f64 roundoff
+    of a changed summation order through the rotations)."""
+    if not _UNSHARDED:
+        with _one_thread():
+            _UNSHARDED.update(_boot_axis_runs(None))
+    ref = _UNSHARDED[run]
+    got = _same_on_every_rank([r['boot_axis'] for r in ranks['ranks']],
+                              mesh, run)
+    assert (ref != 0).any()
+    np.testing.assert_allclose(got, ref, rtol=1e-8, atol=1e-12)
 
 
 def test_mesh_2d_ensemble_and_space(ranks):

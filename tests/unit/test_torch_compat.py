@@ -9,7 +9,8 @@ the same inputs: the parts ``xMCA`` uses (construction, ``.values``,
 ``_weight_columns``), netCDF files written by either package and read by
 both (real, complex, NaN, coordinate attributes), the out-of-core loader
 ``compat.netcdf_chunks`` over a file with a ``_FillValue``, the text
-helpers, the
+helpers (and ``tools.text``, which re-exports them), ``DataArray.plot``'s
+artists on an Agg canvas, the
 longitude wrap and map extent (the port's ``get_extent`` raises its
 ``KeyError``; the original returns None), and the version string.
 """
@@ -129,6 +130,79 @@ def test_text_helpers_match():
     long = ' '.join(['word'] * 60)
     assert ttext.wrap_str(long) == jtext.wrap_str(long)
     assert ttext.wrap_str(long, width=30) == jtext.wrap_str(long, width=30)
+
+
+def test_tools_text_entry_points_match():
+    """``tools.text`` re-exports the three helpers, as the JAX package's
+    ``tools/text.py`` does."""
+    from xmca_tpu.tools import text as jtext
+    from xmca_tpu_torch.tools import text as ttext
+    long = ' '.join(['word'] * 60)
+    for s in ('Sea Surface Temperature', 'sst', long):
+        assert ttext.secure_str(s) == jtext.secure_str(s)
+        assert ttext.boldify_str(s) == jtext.boldify_str(s)
+        assert ttext.wrap_str(s) == jtext.wrap_str(s)
+        assert ttext.wrap_str(s, width=30) == jtext.wrap_str(s, width=30)
+
+
+def _artist_state(artist):
+    """What a drawn 1-D line or 2-D mesh holds: its data, its extent."""
+    if hasattr(artist, 'get_xydata'):
+        return [np.asarray(artist.get_xydata())]
+    return [np.asarray(artist.get_array()),
+            np.asarray(artist.get_coordinates())]
+
+
+@pytest.mark.parametrize('case', ['1d', '1d_complex', '1d_no_coord', '2d',
+                                  '2d_no_coords'])
+def test_dataarray_plot_matches(case):
+    """``DataArray.plot`` of the port's lite copy draws the artists the
+    JAX package's copy draws (Agg canvas), kwargs passed through."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    rng = np.random.default_rng(3)
+    if case.startswith('1d'):
+        data = rng.standard_normal(7)
+        if case == '1d_complex':
+            data = data + 1j * rng.standard_normal(7)
+        dims = ('time',)
+        coords = {} if case == '1d_no_coord' else {'time': np.arange(7.0) * 2}
+        kw = {'color': 'k', 'transform': None}
+    else:
+        data = rng.standard_normal((4, 5))
+        dims = ('lat', 'lon')
+        coords = ({} if case == '2d_no_coords' else
+                  {'lat': np.linspace(-60, 60, 4),
+                   'lon': np.linspace(0, 359, 5)})
+        kw = {'cmap': 'RdBu_r', 'add_colorbar': False, 'vmin': -1.0}
+    drawn = []
+    for lite in (jax_lite, port_lite):
+        fig, ax = plt.subplots()
+        da = lite.DataArray(data, dims=dims, coords=coords)
+        out = da.plot(ax=ax, **dict(kw))
+        artist = out[0] if isinstance(out, list) else out
+        fig.canvas.draw()
+        drawn.append((type(artist), _artist_state(artist),
+                      len(ax.get_children())))
+        plt.close(fig)
+    (jt, js, jn), (tt, ts, tn) = drawn
+    assert tt is jt and tn == jn
+    for a, b in zip(ts, js):
+        np.testing.assert_array_equal(a, b)
+    # no ax: both draw on the current axes
+    fig = plt.figure()
+    out = port_lite.DataArray(data, dims=dims, coords=coords).plot()
+    assert (out[0] if isinstance(out, list) else out).axes is plt.gca()
+    plt.close(fig)
+
+
+def test_dataarray_plot_refuses_3d():
+    data = np.zeros((2, 3, 4))
+    for lite in (jax_lite, port_lite):
+        with pytest.raises(ValueError,
+                           match='can only plot 1-D or 2-D DataArrays'):
+            lite.DataArray(data, dims=('time', 'lat', 'lon')).plot()
 
 
 def test_xarray_tools_match():

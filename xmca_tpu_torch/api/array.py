@@ -17,9 +17,11 @@ streams through the device (``core.streaming``; its bootstrap:
 device mesh (:mod:`xmca_tpu_torch.parallel.mesh`, one process a device):
 ``solve`` shards the fields' packed columns over the 'space' axis and
 the Monte-Carlo methods split their runs over the ensemble axis; getters
-that return a space axis gather it once, where they copy to numpy.  The
-mesh combinations the port does not run raise ``NotImplementedError``
-instead of running something else.
+that return a space axis gather it once, where they copy to numpy.
+``bootstrapping`` runs every combination the JAX package runs on a
+mesh: a column resample (``axis=1``) of sharded fields keeps each rank's
+draws on its own columns, and runs split over the sharded space axis
+itself gather the fields once (its docstring says what each costs).
 
 The Monte-Carlo methods run the accelerator configuration of the JAX
 package on every device (its branch for ``jax.default_backend() ==
@@ -45,12 +47,6 @@ from xmca_tpu_torch.stats import significance as _sig
 from xmca_tpu_torch.utils.device import resolve_device
 
 _HILBERT_MATMUL_MAX_N = 8192
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        '{} is not ported to xmca_tpu_torch yet (see ROADMAP.md, queue 1)'
-        .format(what))
 
 
 def _np(x):
@@ -250,6 +246,11 @@ class MCA:
         for k, f in data.items():
             d = torch.as_tensor(f.reshape(f.shape[0], -1),
                                 device=self._device)
+            if not (d.is_floating_point() or d.is_complex()):
+                # integer and bool fields solve in float32, as chunks do
+                # (core.streaming.stream_dtype) and as jnp.mean promotes
+                # them on the JAX package's device
+                d = d.to(torch.float32)
             nan = torch.isnan(d)
             if bool(nan.all(dim=1).any()):
                 raise ValueError(
@@ -310,10 +311,9 @@ class MCA:
         columns over its 'space' axis (the packed width must divide by
         the shard count; a chunk-backed model shards every chunk), and
         ``rule_n`` and ``bootstrapping`` split their runs over
-        ``ensemble_axis`` (default 'ensemble').  Not run on a space mesh
-        (``NotImplementedError``): ``bootstrapping(axis=1)`` of an
-        in-memory model, and an ``ensemble_axis`` that is the space axis
-        of a sharded model's bootstrap.
+        ``ensemble_axis`` (default 'ensemble'; a chunk-backed model's
+        bootstrap always splits over 'ensemble', as the JAX package's
+        streamed bootstrap does).
         """
         if mesh is not None:
             self._mesh = mesh
@@ -837,11 +837,23 @@ class MCA:
     # --------------------------------------------------------------- rotate
     def rotate(self, n_rot, power=1, tol=1e-8):
         """Varimax (``power=1``) / Promax rotation of the leading
-        ``n_rot`` modes; raises if the fixed point does not converge."""
+        ``n_rot`` modes; raises if the fixed point does not converge.
+
+        A non-integer ``power`` is the Procrustes target's exponent as
+        given (the JAX package's ``rotate`` truncates it to an integer
+        but stores it, and its ``rule_n`` and ``bootstrapping`` run the
+        float).  More modes than the solve kept raise ``ValueError``
+        before anything changes."""
         if n_rot < 2:
             raise ValueError('`n_rot` must be > 1')
         if power < 1:
             raise ValueError('`power` must be >=1')
+        kept = int(self._singular_values.size)
+        if n_rot > kept:
+            raise ValueError(
+                '`n_rot` ({:}) exceeds the {:} modes the solve kept; '
+                'rotate at most {:} modes, or solve for more '
+                '(set_solver(truncate=...))'.format(n_rot, kept, kept))
         sqrt_s = np.sqrt(self._get_svals(n_rot))
         Vl = self._V['left']
         cols = [Vl[:, :n_rot]]
@@ -1276,11 +1288,14 @@ class MCA:
         return self._reconstructed_fields(mode=mode,
                                           original_scale=original_scale)
 
-    def _reconstructed_X_dev(self, key, mode=None):
+    def _reconstructed_X_dev(self, key, mode=None, gathered=False):
         """The scaled, packed mode-subset reconstruction ``real(S W^H)``
         of field ``key`` on the device (the iterative bootstrap's
-        deflation)."""
+        deflation): this rank's columns of a sharded model, all of them
+        when ``gathered``."""
         A, B = _real_factors(*self._reconstruct_factors_dev(key, mode))
+        if gathered:
+            B = self._gather(key, B)
         return A @ B.T
 
     # ----------------------------------------------------------- prediction
@@ -1498,14 +1513,22 @@ class MCA:
         raises the JAX package's ``RuntimeError``.
         ``disable_progress`` is accepted for the JAX API; the port shows
         no progress bar.
+
+        On a mesh whose 'space' axis shards the fields, every rank
+        resamples its own columns: ``axis=0`` its rows of them, ``axis=1``
+        the draws (the same on every rank) that fall on them, so a rank
+        holds about its share of each resample and every Gram and
+        rotation criterion sums over the space group (a collective a
+        contraction, as the sharded solve).  With ``ensemble_axis`` set
+        to that space axis each rank instead gathers the whole fields
+        once a call (one all-reduce a field: a copy of the packed fields
+        a rank, real even for a complexified model, plus a run's
+        resample) and runs its share of whole runs with no collective in
+        them; every rank gets every run back.
         """
         if strategy not in ('standard', 'iterative'):
             raise ValueError(
                 "strategy must be 'standard' or 'iterative'")
-        if self._shard_cols and self._ensemble_axis == _mesh.SPACE_AXIS:
-            raise _not_ported(
-                "bootstrapping with ensemble_axis='space' of a model "
-                "sharded over that axis")
         n_modes_max = self._get_min_mode(n_modes, rotated=True)
         var_surr = np.zeros([n_modes_max, n_runs])
         if seed is None:
@@ -1530,18 +1553,28 @@ class MCA:
         complexify = self._analysis['is_complex']
         extend = self._analysis['extend'] if complexify else False
         H = None
+        X = self._get_X_dev(real=True)
+        # runs split over the space axis the fields are sharded on: each
+        # rank gathers the whole fields once and runs its share of whole
+        # runs outside the space context
+        whole = bool(self._shard_cols) and (
+            self._ensemble_axis == _mesh.SPACE_AXIS)
+        if whole:
+            with self._space():
+                X = {k: _mesh.space_gather_cols(x)[0] for k, x in X.items()}
         for mode in range(n_mode_iters):
-            X_surr = self._get_X_dev(real=True)
+            X_surr = X
             if strategy == 'iterative':
                 # deflate the leading modes on the device (each rank its
-                # columns)
-                X_surr = {k: x - self._reconstructed_X_dev(k, mode)
+                # columns, or the gathered whole)
+                X_surr = {k: x - self._reconstructed_X_dev(k, mode,
+                                                           gathered=whole)
                           for k, x in X_surr.items()}
             if (complexify and not extend
                     and self._ensemble_spectrum == 'fast'):
                 lead = X_surr[self._keys[0]]
                 H = self._hilbert_operator(lead.shape[0], lead.dtype)
-            with self._space():
+            with (_mesh.space_context(None) if whole else self._space()):
                 spectra, converged = _sig.bootstrap_spectra(
                     [X_surr[k] for k in self._keys], n_runs,
                     n_modes_max - mode, mesh=self._mesh,
@@ -1623,7 +1656,9 @@ class MCA:
                 seed=seed + mode, batch_size=self._ensemble_batch_size,
                 subspace_iters=self._subspace_iters, dtype=dtype,
                 device=self._device, deflate=deflate, mesh=self._mesh,
-                ensemble_axis=self._ensemble_axis, own=self._stream_own)
+                # the JAX package's streamed bootstrap takes no ensemble
+                # axis: its runs split over the mesh's 'ensemble' axis
+                ensemble_axis=_mesh.ENSEMBLE_AXIS, own=self._stream_own)
             var_surr[mode:, converged] = spectra[converged].T
             if strategy == 'standard':
                 break

@@ -10,7 +10,8 @@ need while xarray is not installed:
 * reductions over named dims, ``isel`` (positional), ``sel``
   (label-based, inclusive slices), numpy-style ``[]`` indexing, ``where``,
 * netCDF round trips via :mod:`xmca_tpu_torch.compat.netcdf` (h5py),
-* ``sortby`` / ``assign_coords`` used by ``tools.xarray``.
+* ``sortby`` / ``assign_coords`` used by ``tools.xarray``,
+* ``plot``: a line for 1-D, ``pcolormesh`` for 2-D (matplotlib).
 
 If real xarray is installed, :mod:`xmca_tpu_torch.compat` prefers it;
 this module is the fallback, NOT a general xarray replacement.
@@ -375,6 +376,28 @@ class DataArray:
             path, self.name or 'data', self.values, self.dims,
             coords=coords, attrs=attrs,
         )
+
+    def plot(self, ax=None, **kwargs):
+        """Minimal matplotlib plotting: line for 1-D, pcolormesh for 2-D
+        (matplotlib is imported here, at the first plot)."""
+        import matplotlib.pyplot as plt
+        if ax is None:
+            ax = plt.gca()
+        kwargs.pop('transform', None)
+        kwargs.pop('add_colorbar', None)
+        if self.ndim == 1:
+            x = (self.coords[self.dims[0]].values
+                 if self.dims[0] in self.coords
+                 else np.arange(self.shape[0]))
+            return ax.plot(x, self.values.real, **kwargs)
+        if self.ndim == 2:
+            ydim, xdim = self.dims
+            x = (self.coords[xdim].values if xdim in self.coords
+                 else np.arange(self.shape[1]))
+            y = (self.coords[ydim].values if ydim in self.coords
+                 else np.arange(self.shape[0]))
+            return ax.pcolormesh(x, y, self.values.real, **kwargs)
+        raise ValueError('can only plot 1-D or 2-D DataArrays')
 
 
 

@@ -42,6 +42,9 @@ def analytic_signal(x):
     (``scipy.signal.hilbert(x, axis=0)``), one column chunk at a time
     into the complex output."""
     n, p = x.shape
+    if p == 0:
+        # a rank's empty share of a space-axis resample
+        return torch.complex(x, torch.zeros_like(x))
     h = torch.as_tensor(_analytic_weights(n, np.float64), device=x.device)
     n_chunks = -(-n * p // _CHUNK_ELEMS)
     chunk = -(-p // n_chunks)
@@ -101,7 +104,7 @@ def complexify(field, extend=False, period=1):
     'theta') the analytic signal of [backcast | field | forecast] is cut
     back to the middle third and re-centered."""
     field = field.real
-    if not extend:
+    if not extend or field.shape[1] == 0:
         return analytic_signal(field)
     n, p = field.shape
     # forecast and backcast in one batched call: the columns of

@@ -263,17 +263,42 @@ def col_norm(x):
     return torch.sqrt(space_sum(sq))
 
 
+def space_offsets(widths, device):
+    """``(lo, total)``: for each of several column blocks this rank holds
+    (their widths ``widths``; one block a field), where the rank's block
+    starts in the field's columns and the field's whole width, from ONE
+    collective (``(0, widths)`` outside a context)."""
+    mesh = _ACTIVE['mesh']
+    if mesh is None:
+        return [0] * len(widths), [int(w) for w in widths]
+    shards, r = axis_size(mesh, SPACE_AXIS), axis_rank(mesh, SPACE_AXIS)
+    t = torch.zeros((shards, len(widths)), dtype=torch.int64, device=device)
+    t[r] = torch.as_tensor([int(w) for w in widths], device=device)
+    t = all_reduce(t, mesh, SPACE_AXIS).cpu()
+    return t[:r].sum(dim=0).tolist(), t.sum(dim=0).tolist()
+
+
+def draws_on_rank(own, total):
+    """The map from draws (a LongTensor of indices into an axis of
+    ``total``, repeats allowed) to those that fall on this rank's
+    entries, given as their positions ``own`` (a LongTensor) along that
+    axis: each kept draw becomes its entry's index in ``own``, in draw
+    order with its repeats."""
+    g2l = torch.full((total,), -1, dtype=torch.long, device=own.device)
+    g2l[own] = torch.arange(len(own), device=own.device)
+
+    def local(idx):
+        loc = g2l[idx]
+        return loc[loc >= 0]
+    return local
+
+
 def space_gather_cols(X):
     """``(full, lo)``: the columns of every space shard of ``X`` side by
     side in rank order, and where this rank's block starts."""
     mesh = _ACTIVE['mesh']
-    shards, r = axis_size(mesh, SPACE_AXIS), axis_rank(mesh, SPACE_AXIS)
-    widths = torch.zeros(shards, dtype=torch.int64, device=X.device)
-    widths[r] = X.shape[1]
-    widths = all_reduce(widths, mesh, SPACE_AXIS).tolist()
-    lo = int(sum(widths[:r]))
-    full = torch.zeros((X.shape[0], int(sum(widths))), dtype=X.dtype,
-                       device=X.device)
+    (lo,), (total,) = space_offsets([X.shape[1]], X.device)
+    full = torch.zeros((X.shape[0], total), dtype=X.dtype, device=X.device)
     full[:, lo:lo + X.shape[1]] = X
     return all_reduce(full, mesh, SPACE_AXIS), lo
 

@@ -36,7 +36,9 @@ seeds and the runs are gathered in run order (as float64: each rank's
 values upcast exactly) before the non-converged ones are dropped, so the
 result is the unsharded one run for run.  Rule-N's surrogate fields are
 whole on every rank; a bootstrap resamples the model's fields, which a
-'space' axis shards by columns (the time axis only).
+'space' axis shards by columns: a time resample takes each rank's rows
+of its own columns, a column resample each rank's draws on its own
+columns (:func:`bootstrap_spectra`).
 """
 import numpy as np
 import torch
@@ -316,6 +318,23 @@ def _block_indices(generator, n_total, block_size, replace):
             + torch.arange(block_size)[None, :]).reshape(-1)
 
 
+def _space_draws(widths, device):
+    """``(sizes, local)`` for a column resample of a pool of fields side
+    by side, of which this rank holds blocks of ``widths`` columns: the
+    fields' global widths, and the map from draws over the pool to the
+    draws that fall on this rank's columns, as positions in its blocks
+    side by side, in draw order (repeats kept); outside a space context,
+    the widths and the draws themselves."""
+    lo, sizes = _mesh.space_offsets(widths, device)
+    if not _mesh.space_sharded():
+        return sizes, lambda idx: idx
+    pos, base = [], 0
+    for start, width, size in zip(lo, widths, sizes):
+        pos.append(base + start + torch.arange(width, device=device))
+        base += size
+    return sizes, _mesh.draws_on_rank(torch.cat(pos), base)
+
+
 def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
                       on_right=False, block_size=1, replace=True,
                       complexify=False, extend=False, period=1,
@@ -337,20 +356,23 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
 
     ``mesh`` splits the runs over its ``ensemble_axis``.  Inside a space
     context (:func:`xmca_tpu_torch.parallel.mesh.space_context`) the
-    ``fields`` are this rank's column blocks (the model's shards), every
-    resample's contractions sum over the space group, and only the time
-    axis resamples (``axis=1`` raises ``NotImplementedError``).
+    ``fields`` are this rank's column blocks (the model's shards) and
+    every resample's contractions sum over the space group.  A column
+    resample (``axis=1``) draws the same global indices on every rank,
+    and each rank keeps the draws that fall on its own columns (repeats
+    kept, in draw order): its share of the resample, ``X_loc diag(c_loc)
+    X_loc^T`` for its columns' draw counts ``c_loc``, as the chunk-backed
+    bootstrap weighs them.  Every contraction and rotation criterion is
+    a sum over columns, so the shares summed over the group are the
+    resample's, up to the order of the sums.  A rank holds on average
+    its share of the resampled width, as it holds its share of the
+    fields; nothing is gathered.
 
     Returns ``(spectra (n_runs, n_out_modes), converged (n_runs,))`` as
     numpy; the rows of non-converged runs are to be dropped.
     """
     if axis not in (0, 1):
         raise ValueError('{:} not a valid axis. either 0 or 1.'.format(axis))
-    if axis == 1 and _mesh.space_sharded():
-        raise NotImplementedError(
-            'bootstrapping(axis=1) of an in-memory model whose fields are '
-            'sharded over a space mesh is not ported (see ROADMAP.md, '
-            'queue 1)')
     if seed is None:
         seed = int(np.random.randint(0, 2 ** 31 - 1))
     bivariate = len(fields) == 2
@@ -359,6 +381,16 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
             'No bootstrapping possible. There is no right field. '
             'Set `on_right=False`.'
         )
+    n_obs = int(fields[0].shape[0])
+    device = fields[0].device
+    real = fields[0].real.dtype
+    # the resampled pool: its fields and, for a column resample, their
+    # global widths (this rank's blocks summed over a space group)
+    pool = ([0, 1] if on_left and on_right
+            else [0] if on_left else [1] if on_right else [])
+    if axis == 1 and pool:
+        widths, local = _space_draws([fields[i].shape[1] for i in pool],
+                                     device)
 
     def _check(length):
         if length % block_size != 0:
@@ -367,35 +399,25 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
                 'size {:}'.format(length, block_size)
             )
 
-    if on_left or on_right:
-        if axis == 0:
-            _check(fields[0].shape[0])
-        elif on_left and on_right:
-            _check(sum(f.shape[1] for f in fields))
-        else:
-            _check(fields[0].shape[1] if on_left else fields[1].shape[1])
-
-    n_obs = int(fields[0].shape[0])
-    device = fields[0].device
-    real = fields[0].real.dtype
+    if pool:
+        _check(n_obs if axis == 0 else sum(widths))
 
     def resample(gen, fs):
-        if not (on_left or on_right):
+        if not pool:
             return fs
         if axis == 0:
             idx = _block_indices(gen, n_obs, block_size, replace).to(device)
-            return [f[idx] if (i == 0 and on_left) or (i == 1 and on_right)
-                    else f for i, f in enumerate(fs)]
-        if on_left and on_right:
-            w = fs[0].shape[1]
-            idx = _block_indices(gen, w + fs[1].shape[1], block_size,
-                                 replace).to(device)
-            mixed = torch.cat(fs, dim=1)[:, idx]
-            return [mixed[:, :w], mixed[:, w:]]
-        i = 0 if on_left else 1
-        idx = _block_indices(gen, fs[i].shape[1], block_size,
+            return [f[idx] if i in pool else f for i, f in enumerate(fs)]
+        idx = _block_indices(gen, sum(widths), block_size,
                              replace).to(device)
-        return [f[:, idx] if j == i else f for j, f in enumerate(fs)]
+        src = (fs[pool[0]] if len(pool) == 1
+               else torch.cat([fs[i] for i in pool], dim=1))
+        draws = (idx[:widths[0]], idx[widths[0]:]) if len(pool) == 2 else (
+            idx,)
+        out = list(fs)
+        for i, d in zip(pool, draws):
+            out[i] = src[:, local(d)]
+        return out
 
     def one_run(s):
         gen = torch.Generator().manual_seed(s)

@@ -536,15 +536,8 @@ def _pool_rows(su, sources):
         return lambda i: i
     base = {'left': 0, 'right': su.p['left'] if len(sources) == 2 else 0}
     pos = np.concatenate([base[k] + su.cols[k] for k, _ in sources])
-    pool_w = sum(su.p[k] for k, _ in sources)
-    g2l = torch.full((pool_w,), -1, dtype=torch.long, device=su.device)
-    g2l[torch.as_tensor(pos, device=su.device)] = torch.arange(
-        len(pos), device=su.device)
-
-    def rows(i):
-        loc = g2l[i]
-        return loc[loc >= 0]
-    return rows
+    return _mesh.draws_on_rank(torch.as_tensor(pos, device=su.device),
+                               sum(su.p[k] for k, _ in sources))
 
 
 def _axis1_project_rotate(su, runs, draws, sources, both):
