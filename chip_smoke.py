@@ -14,6 +14,9 @@
    kernel's bound: the largest of its operations over the card's
    published peak, its bytes over the memory rate and its Philox calls
    over the SMs' issue rate (PHILOX_SASS_PER_CALL instructions each);
+   K1 (syrk) with the median, least and largest of its per-launch
+   times, and in the tile order of each band height of SYRK_BANDS
+   (``syrk_sweep``: bit-equal, timed, the row panels a wave reads);
 3. drives the main path once through the public API at full width: two
    synthetic (2000 steps x 250 x 400 cells) f32 fields through
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
@@ -74,7 +77,9 @@
    apply_coslat -> solve(complexify=True) -> rotate(10) ->
    rule_n(N_LONG_RUNS)``, longer than the analytic fold's 8192 steps;
    exactly 2 x N_LONG_RUNS launches of syrk and sign_field_sums; then
-   both kernels against their plain versions at that shape;
+   both kernels against their plain versions at that shape, and K1 at
+   it and at the fold's longest record (8192 steps) in the band sweep,
+   with and without its wave barrier;
 12. ``extend_path``: the main path with ``solve(complexify=True,
    extend='exp'|'theta', period=365)``, ``rule_n(16)`` (exactly 2 x 16
    launches of syrk and sign_field_sums each) and ``bootstrapping(4)``;
@@ -125,6 +130,7 @@ kernel table (JSON), the card's ``name, power.limit`` from nvidia-smi,
 and the result line ``{"ok": true, "device": {...}}``.
 """
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -146,6 +152,7 @@ BOOT_BLOCK = 20      # moving-block length (steps)
 # cells: up to 5.8e-3); the sum over the modes moves far less (1.2e-6)
 SINGLE_BLOCK_TOL = {'mode': 2e-2, 'sum': 1e-3}
 N_LONG = 14610       # 40 years of daily steps: beyond the 8192-step fold
+N_FOLD = 8192        # the analytic fold's longest record
 N_LONG_RUNS = 4      # Rule-N runs of the long record: cut for time only
 SEED = 7
 ENSEMBLE = dict(power=1, tol=1e-4, n_iter=6, polar_method='ns14')
@@ -182,6 +189,29 @@ def _time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _launch_ms(torch, fn, reps):
+    """Device time of each of ``reps`` launches of ``fn`` (a CUDA event
+    pair around each, after one warm-up call): ``{ms: the median,
+    ms_min, ms_max}``."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in pairs)
+    return {'ms': statistics.median(times), 'ms_min': times[0],
+            'ms_max': times[-1]}
+
+
+def _spread(t):
+    return '{:.4f} ms (min {:.4f}, max {:.4f})'.format(t['ms'], t['ms_min'],
+                                                       t['ms_max'])
 
 
 def _pm1_field(torch, n, p, n_pad, p_pad, gen, dtype):
@@ -328,9 +358,9 @@ def check_syrk(torch):
           .format((n_pad, p_pad), rel))
     del Xr, G, ref
 
-    # times at the main path's shape; the yardsticks compute the full
-    # (not triangular) product in one library call, which the port never
-    # makes
+    # times at the main path's shape (a median of 20 launches); the
+    # yardsticks compute the full (not triangular) product in one library
+    # call, which the port never makes
     X = _pm1_field(torch, N_OBS, N_LAT * N_LON, n_pad, p_pad, gen,
                    torch.int8)
     Xb = X.to(torch.bfloat16)
@@ -341,20 +371,69 @@ def check_syrk(torch):
             ('bf16', Xb, lambda: syrk(Xb),
              lambda: torch.mm(Xb, Xb.T, out_dtype=torch.float32),
              'torch.mm(X, X.T, out_dtype=torch.float32)')):
-        err = float((kern() - syrk_reference(Xk)).abs().max())
-        ms = _time_ms(torch, kern, 20)
+        ref = syrk_reference(Xk)
+        err = float((kern() - ref).abs().max())
+        t = _launch_ms(torch, kern, 20)
         plain_ms = _time_ms(torch, lambda: syrk_reference(Xk), 5)
-        library_ms = _time_ms(torch, lib, 20)
+        library_ms = _launch_ms(torch, lib, 20)['ms']
         b = _gram_bound(n_pad, p_pad, Xk.element_size(), name)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, **b)
-        print('syrk {} at {}: kernel {:.4f} ms (PR 3: {:.4f} ms) = {:.1f}% '
-              'of its bound {:.4f} ms ({}); plain {:.3f} ms; library {} '
-              '{:.4f} ms (kernel / library {:.3f})'.format(
-                  name, (n_pad, p_pad), ms, SYRK_PR3_MS[name],
-                  100 * b['bound_ms'] / ms, b['bound_ms'], b['bound_by'],
-                  plain_ms, lib_name, library_ms, ms / library_ms))
-    return dict(out['int8'], bf16=out['bf16'])
+        out[name] = dict(max_abs_err=err, plain_ms=plain_ms,
+                         library_ms=library_ms, **t, **b)
+        print('syrk {} at {}: kernel {} (first wgmma version: {:.4f} ms) = '
+              '{:.1f}% of its bound {:.4f} ms ({}); plain {:.3f} ms; '
+              'library {} {:.4f} ms (kernel / library {:.3f})'.format(
+                  name, (n_pad, p_pad), _spread(t), SYRK_PR3_MS[name],
+                  100 * b['bound_ms'] / t['ms'], b['bound_ms'],
+                  b['bound_by'], plain_ms, lib_name, library_ms,
+                  t['ms'] / library_ms))
+        if name == 'int8':
+            out['sweep'] = syrk_sweep(torch, X, ref, 20)
+        del ref
+    return dict(out['int8'], bf16=out['bf16'], sweep=out['sweep'])
+
+
+# band heights of K1's tile-order sweep (ops/syrk.py:tile_order; 1 is
+# the row-major walk of the triangle, 11 the default on 132 SMs)
+SYRK_BANDS = (1, 4, 8, 11, 12, 16)
+
+
+def syrk_sweep(torch, X, ref, reps):
+    """K1 int8 on the +-1 ``X`` in the tile order of each band height of
+    SYRK_BANDS, with and without the wave barrier where the schedule has
+    two whole waves or more: bit-equal to ``ref`` (``syrk_reference(X)``),
+    a median of ``reps`` launches with its spread, the share of the
+    bound, and the distinct row panels a whole wave reads in that
+    order."""
+    from xmca_tpu_torch.ops import syrk as k1
+    n_pad, p_pad = X.shape
+    sms = k1._sm_count(X.device.index)
+    s = k1.schedule(n_pad, p_pad, 1, sms)
+    b = _gram_bound(n_pad, p_pad, 1, 'int8')
+    rows = []
+    try:
+        for band in SYRK_BANDS:
+            for barrier in (True, False) if s.dp_tiles > s.grid else (True,):
+                k1._BAND, k1._WAVE_BARRIER = band, barrier
+                _check(torch.equal(k1.syrk(X, pm1=True), ref),
+                       'syrk int8 in bands of {} (barrier {}) differs at {}'
+                       .format(band, barrier, (n_pad, p_pad)))
+                t = _launch_ms(torch, lambda: k1.syrk(X, pm1=True), reps)
+                panels = k1.wave_panels(n_pad, sms, band) or [0]
+                rows.append(dict(band=band, barrier=barrier,
+                                 panels_max=max(panels),
+                                 panels_mean=statistics.mean(panels), **t))
+                print('syrk int8 at {} in bands of {} tile rows, {}: '
+                      'bit-equal; {} = {:.1f}% of its bound {:.4f} ms; a '
+                      'whole wave reads {} row panels at most, {:.2f} on '
+                      'average'.format(
+                          (n_pad, p_pad), band,
+                          'wave barrier' if barrier else 'no barrier',
+                          _spread(t), 100 * b['bound_ms'] / t['ms'],
+                          b['bound_ms'], max(panels),
+                          statistics.mean(panels)))
+    finally:
+        k1._BAND, k1._WAVE_BARRIER = None, True
+    return rows
 
 
 def check_sign_field(torch):
@@ -485,10 +564,11 @@ def check_surrogate_gram(torch):
           'mumu {:.2e} (tol 1e-5); symmetric, the same bits twice; '
           'rademacher and rademacher8 bit-equal'.format(
               (n, p), rel, rel_syrk, e_mu, e_u, e_mumu))
-    # chunk edges: p < C, p = C, p = 2C + 1 (a one-column last chunk), and
-    # n = 130 (a padded second tile row)
+    # chunk edges: p < C, p = C, p = 2C + 1 (a one-column last chunk),
+    # n = 130 (a padded second tile row) and n = 6000 (eight whole waves
+    # of K1: its wave barrier in the accumulate mode)
     edges = [(n, 1000), (n, CHUNK_COLS), (n, 2 * CHUNK_COLS + 1),
-             (130, 2 * CHUNK_COLS + 1)]
+             (130, 2 * CHUNK_COLS + 1), (6000, 2 * CHUNK_COLS + 1)]
     for shape in edges:
         _, r, rs, _ = _gram_case(torch, 12, *shape)
         print('surrogate_gram at chunk edge {} (C = {}): G rel err {:.2e} '
@@ -1323,13 +1403,36 @@ def make_fields_on_card(torch, n_obs, n_lat, n_lon, seed0):
     return out
 
 
+def _long_syrk(torch, X):
+    """K1 int8 on the +-1 ``X``: bit-equal to its plain version (an f64
+    matmul on the card), a median of 12 launches beside its bound and
+    ``torch._int_mm``'s full product, and the band sweep
+    (:func:`syrk_sweep`)."""
+    from xmca_tpu_torch.ops.syrk import syrk, syrk_reference
+    n_pad, p_pad = X.shape
+    G, ref = syrk(X, pm1=True), syrk_reference(X)
+    torch.cuda.synchronize()
+    err = float((G - ref).abs().max())
+    _check(torch.equal(G, ref), 'syrk int8 differs at {}'.format(
+        (n_pad, p_pad)))
+    del G
+    k1 = dict(shape=[n_pad, p_pad], max_abs_err=err,
+              **_launch_ms(torch, lambda: syrk(X, pm1=True), 12),
+              plain_ms=_time_ms(torch, lambda: syrk_reference(X), 1),
+              library_ms=_launch_ms(torch, lambda: torch._int_mm(X, X.T),
+                                    10)['ms'],
+              **_gram_bound(n_pad, p_pad, 1, 'int8'))
+    k1['sweep'] = syrk_sweep(torch, X, ref, 12)
+    return k1
+
+
 def long_kernels(torch):
     """K1 (int8) and K2 at the long record's shape against their plain
-    versions (K1's an f64 matmul on the card), timed beside their bounds
-    and K1's library call."""
+    versions, timed beside their bounds and K1's library call; K1 also
+    at the fold's longest record, (8192, 100096) (``k1['fold']``)."""
     from xmca_tpu_torch.ops.surrogate import (sign_field_sums,
                                               sign_field_sums_reference)
-    from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
+    from xmca_tpu_torch.ops.syrk import pad_to
     p = N_LAT * N_LON
     n_pad, p_pad = pad_to(N_LONG, p)
     X, s = sign_field_sums(99, N_LONG, p, n_pad, p_pad, 'cuda')
@@ -1339,18 +1442,11 @@ def long_kernels(torch):
            'sign_field_sums differs at {}'.format((N_LONG, p)))
     k2_err = float((X.int() - Xr.int()).abs().max())
     del Xr, sr
-    G, ref = syrk(X, pm1=True), syrk_reference(X)
-    torch.cuda.synchronize()
-    k1_err = float((G - ref).abs().max())
-    _check(torch.equal(G, ref), 'syrk int8 differs at {}'.format(
-        (n_pad, p_pad)))
-    del G, ref
-    k1 = dict(shape=[n_pad, p_pad], max_abs_err=k1_err,
-              ms=_time_ms(torch, lambda: syrk(X, pm1=True), 5),
-              plain_ms=_time_ms(torch, lambda: syrk_reference(X), 1),
-              library_ms=_time_ms(torch, lambda: torch._int_mm(X, X.T), 5),
-              **_gram_bound(n_pad, p_pad, 1, 'int8'))
+    k1 = _long_syrk(torch, X)
     del X, s
+    X, _ = sign_field_sums(98, N_FOLD, p, *pad_to(N_FOLD, p), 'cuda')
+    k1['fold'] = _long_syrk(torch, X)
+    del X
     k2 = dict(shape=[n_pad, p_pad], max_abs_err=k2_err,
               ms=_time_ms(torch, lambda: sign_field_sums(
                   5, N_LONG, p, n_pad, p_pad, 'cuda'), 5),
@@ -1359,11 +1455,14 @@ def long_kernels(torch):
               library_ms=None,
               **bound(nbytes=n_pad * p_pad + 4 * p_pad,
                       calls=N_LONG * p_pad // 128))
-    for name, k in (('syrk int8', k1), ('sign_field_sums', k2)):
-        print('{} at the long shape {}: bit-equal to plain; kernel {:.4f} ms '
-              '= {:.1f}% of its bound {:.4f} ms ({}); plain {:.3f} ms; '
+    for name, k in (('syrk int8', k1), ('syrk int8', k1['fold']),
+                    ('sign_field_sums', k2)):
+        print('{} at {}: bit-equal to plain; kernel {} = '
+              '{:.1f}% of its bound {:.4f} ms ({}); plain {:.3f} ms; '
               'library {}'.format(
-                  name, tuple(k['shape']), k['ms'],
+                  name, tuple(k['shape']),
+                  _spread(k) if 'ms_min' in k else '{:.4f} ms'.format(
+                      k['ms']),
                   100 * k['bound_ms'] / k['ms'], k['bound_ms'],
                   k['bound_by'], k['plain_ms'],
                   'torch._int_mm(X, X.T) {:.4f} ms'.format(k['library_ms'])

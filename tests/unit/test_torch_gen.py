@@ -423,10 +423,11 @@ def test_field_kernel_matches_plain(cuda_device, dist, n, p):
 @pytest.mark.cuda
 @pytest.mark.parametrize('n, p', [
     (96, 400), (200, 3000), (130, 1001), (130, 100), (200, CHUNK_COLS),
-    (130, 2 * CHUNK_COLS + 1)])
+    (130, 2 * CHUNK_COLS + 1), (6000, 2 * CHUNK_COLS + 1)])
 def test_gram_kernel_matches_plain(cuda_device, n, p):
     """Chunk edges: p < 128, p = C, p = 2C + 1 (a one-column last
-    chunk) and n = 130 (a padded second tile row)."""
+    chunk), n = 130 (a padded second tile row) and n = 6000 (eight whole
+    waves of K1 on 132 SMs: its wave barrier)."""
     G, mu, u, mumu = surrogate_gram(2, n, p, 'normal32', cuda_device)
     Gr, mur, ur, mumur = surrogate_gram_reference(2, n, p, 'normal32',
                                                   cuda_device)

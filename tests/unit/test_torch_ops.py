@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from xmca_tpu_torch.ops import _build
+from xmca_tpu_torch.ops import syrk as syrk_module
 from xmca_tpu_torch.ops.surrogate import (philox4x32_10, sign_field_sums,
                                           sign_field_sums_reference)
-from xmca_tpu_torch.ops.syrk import (TILE, pad_to, schedule, syrk,
-                                     syrk_reference, tile_coords,
-                                     work_units, workspace_tiles)
+from xmca_tpu_torch.ops.syrk import (TILE, band_rows, pad_to, schedule,
+                                     syrk, syrk_reference, tile_order,
+                                     wave_counter, wave_panels, work_units,
+                                     workspace_tiles)
 
 
 @pytest.fixture
@@ -152,15 +154,7 @@ def test_cpu_wrappers_launch_nothing():
     assert _build._state['lib'] is None
 
 
-@pytest.mark.parametrize('n_pad, p_pad', [(128, 128), (256, 3072),
-                                          (2048, 100096), (4096, 20096)])
-@pytest.mark.parametrize('elem_bytes', [1, 2])
-def test_syrk_schedule_covers_every_tile_once(n_pad, p_pad, elem_bytes):
-    """The kernel's work list on a 132-SM card: every lower-triangle
-    tile is computed once, whole or as pieces that cover its contraction
-    blocks exactly once in order; no block idles a whole wave while
-    another has work; the workspace holds one tile per piece."""
-    sms = 132
+def _check_schedule(n_pad, p_pad, elem_bytes, sms, band=None):
     s = schedule(n_pad, p_pad, elem_bytes, sms)
     nb = n_pad // TILE
     assert s.tiles == nb * (nb + 1) // 2
@@ -189,9 +183,145 @@ def test_syrk_schedule_covers_every_tile_once(n_pad, p_pad, elem_bytes):
     if s.dp_tiles:
         # the split tail adds at most one piece to a block's full waves
         assert max(loads) - min(loads) <= -(-s.kblocks // s.splits)
-    ti, tj = zip(*(tile_coords(t) for t in range(s.tiles)))
-    assert len(set(zip(ti, tj))) == s.tiles
-    assert all(0 <= j <= i < nb for i, j in zip(ti, tj))
+    order = tile_order(n_pad, sms, band)
+    assert len(order) == s.tiles and len(set(order)) == s.tiles
+    assert all(0 <= j <= i < nb for i, j in order)
+
+
+@pytest.mark.parametrize('n_pad, p_pad', [(128, 128), (256, 3072),
+                                          (2048, 100096), (4096, 20096)])
+@pytest.mark.parametrize('elem_bytes', [1, 2])
+def test_syrk_schedule_covers_every_tile_once(n_pad, p_pad, elem_bytes):
+    """The kernel's work list on a 132-SM card: every lower-triangle
+    tile is computed once, whole or as pieces that cover its contraction
+    blocks exactly once in order; no block idles a whole wave while
+    another has work; the workspace holds one tile per piece."""
+    _check_schedule(n_pad, p_pad, elem_bytes, 132)
+
+
+# the 14610-step record, the fold's 8192 steps, and 47 tile rows, which
+# no band height of the sweep divides
+@pytest.mark.parametrize('n_pad, p_pad', [(14720, 100096), (8192, 100096),
+                                          (6016, 8064)])
+@pytest.mark.parametrize('band', [None, 1, 4, 8, 12, 16])
+def test_syrk_schedule_covers_every_tile_once_long(n_pad, p_pad, band):
+    """As above at multi-wave shapes, for each band height of the tile
+    order (None: the default, 11 tile rows on 132 SMs)."""
+    _check_schedule(n_pad, p_pad, 1, 132, band)
+
+
+@pytest.mark.parametrize('n_pad', [128, 1536, 6016, 14720])
+@pytest.mark.parametrize('sms, band', [(132, None), (132, 1), (132, 5),
+                                       (132, 200), (32, None), (7, 3)])
+def test_syrk_tile_order_bands(n_pad, sms, band):
+    """The order walks bands of tile rows whose heights differ by at
+    most one, each column by column, top down: g = 1 is the row-major
+    walk of the triangle and a band as high as the triangle its
+    column-major walk."""
+    nb = n_pad // TILE
+    order = tile_order(n_pad, sms, band)
+    g = min(band or band_rows(sms), nb)
+    n_bands = -(-nb // g)
+    heights = [nb // n_bands + (b < nb % n_bands) for b in range(n_bands)]
+    assert max(heights) <= g
+    pos = r0 = 0
+    for h in heights:
+        # rows [r0, r0 + h): h * r0 full-height columns, then a triangle
+        size = h * r0 + h * (h + 1) // 2
+        walk = order[pos:pos + size]
+        assert sorted(walk) == [(i, j) for i in range(r0, r0 + h)
+                                for j in range(i + 1)]
+        assert walk == sorted(walk, key=lambda ij: (ij[1], ij[0]))
+        pos, r0 = pos + size, r0 + h
+    assert pos == len(order)
+    if g == 1:
+        assert order == [(i, j) for i in range(nb) for j in range(i + 1)]
+    if g == nb:
+        assert order == [(i, j) for j in range(nb) for i in range(j, nb)]
+
+
+def test_syrk_tile_order_long_shape_wave_panels():
+    """At the 14610-step record's (14720, 100096) on 132 SMs, each of
+    the 50 whole waves of the default order reads at most 32 distinct
+    row panels of X, 26 on average; the row-major order (band 1) reads
+    up to 115, 78 on average."""
+    assert band_rows(132) == 11
+    grouped = wave_panels(14720, 132)
+    row_major = wave_panels(14720, 132, band=1)
+    assert len(grouped) == len(row_major) == 50
+    assert max(grouped) <= 32 and np.mean(grouped) <= 26
+    assert max(row_major) == 115 and round(np.mean(row_major)) == 78
+    fold = wave_panels(8192, 132)
+    assert len(fold) == 15 and max(fold) <= 32
+
+
+@pytest.mark.parametrize('n_pad, barrier', [
+    (128, False), (2048, False), (2816, False), (2944, True), (4096, True),
+    (14720, True)])
+def test_syrk_wave_barrier_from_two_whole_waves(monkeypatch, n_pad,
+                                                barrier):
+    """The kernel gets a wave counter (4 bytes) where its schedule has
+    two whole waves or more on 132 SMs (22 tile rows: 253 tiles, one
+    wave; 23: 276, two), and none when the module turns it off."""
+    s = schedule(n_pad, 100096, 1, 132)
+    waves = wave_counter(s, 'cpu')
+    assert (waves is not None) == barrier == (s.dp_tiles >= 2 * s.grid)
+    if barrier:
+        assert waves.dtype == torch.int32 and waves.numel() == 1
+    monkeypatch.setattr(syrk_module, '_WAVE_BARRIER', False)
+    assert wave_counter(s, 'cpu') is None
+
+
+@pytest.mark.parametrize('band', [None, 1, 4])
+def test_syrk_schedule_emulation_matches_jax_syrk(band):
+    """The kernel's schedule walked on the CPU: every block's units in
+    its order, at (1536, 1024) int8 on 32 SMs (78 tiles: two whole waves
+    and 14 tiles split in two).  A whole tile's product goes to G and its
+    mirror (a diagonal tile's lower half), a piece's to its workspace
+    slot, and the pieces of each split tile are summed in order 0, 1, ...
+    in int32, as the kernel and split_sum_kernel do.  G is bit-equal to
+    the JAX package's Pallas syrk in interpret mode."""
+    import jax.numpy as jnp
+    from xmca_tpu.ops.syrk import pad_to as jax_pad_to
+    from xmca_tpu.ops.syrk import syrk as jax_syrk
+    n, p, sms = 1536, 1024, 32
+    assert jax_pad_to(n, p) == pad_to(n, p) == (n, p)
+    rng = np.random.default_rng(4)
+    X = rng.choice(np.array([-1, 1], np.int8), size=(n, p))
+    X[1500:] = 0
+    X[:, 1000:] = 0
+    s = schedule(n, p, 1, sms)
+    assert (s.dp_tiles, s.split_tiles, s.splits) == (64, 14, 2)
+    order = tile_order(n, sms, band)
+    Xi = X.astype(np.int32)
+    G = np.zeros((n, n), np.float32)
+    work = np.zeros((workspace_tiles(s), TILE, TILE), np.int32)
+    lower = np.tri(TILE, dtype=bool)
+
+    def store(ti, tj, tile):
+        r, c = slice(ti * TILE, ti * TILE + TILE), slice(tj * TILE,
+                                                         tj * TILE + TILE)
+        keep = lower if ti == tj else np.ones_like(lower)
+        G[r, c] = np.where(keep, tile, G[r, c])
+        G[c, r] = np.where(keep.T, tile.T, G[c, r])
+
+    for b in range(s.grid):
+        for t, k0, k1, slot in work_units(s, b):
+            ti, tj = order[t]
+            k = slice(k0 * 128, k1 * 128)     # int8: 128 columns a block
+            part = (Xi[ti * TILE:ti * TILE + TILE, k]
+                    @ Xi[tj * TILE:tj * TILE + TILE, k].T)
+            if slot < 0:
+                store(ti, tj, part.astype(np.float32))
+            else:
+                work[slot] = part
+    for y in range(s.split_tiles):
+        total = np.zeros((TILE, TILE), np.int32)
+        for i in range(s.splits):
+            total += work[y * s.splits + i]
+        store(*order[s.dp_tiles + y], total.astype(np.float32))
+    G_jax = np.asarray(jax_syrk(jnp.asarray(X), interpret=True))
+    np.testing.assert_array_equal(G, G_jax)
 
 
 def test_syrk_schedule_main_path_shape():
@@ -235,8 +365,9 @@ def test_syrk_kernel_matches_plain_bf16(cuda_device):
 def test_syrk_kernel_bf16_randn_split_tiles(cuda_device, n, p):
     """bf16 N(0,1) through a padded second tile row (n = 130) and
     through the split tail (n_pad = 2048): within 1e-4 of max|G| (f32
-    sums in another order, the kernel's folded every 64 products),
-    exactly symmetric, the same bits on a second run."""
+    sums in another order, the kernel's folded every kFoldBlocks = 4
+    contraction blocks, 256 products), exactly symmetric, the same bits
+    on a second run."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     X = torch.zeros(pad_to(n, p), dtype=torch.bfloat16, device=cuda_device)
     X[:n, :p] = torch.randn((n, p), generator=gen, device=cuda_device)
@@ -244,6 +375,20 @@ def test_syrk_kernel_bf16_randn_split_tiles(cuda_device, n, p):
     torch.cuda.synchronize()
     assert float((G - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert torch.equal(G, G.T) and torch.equal(G, syrk(X))
+
+
+@pytest.mark.cuda
+def test_syrk_kernel_multi_wave_ragged(cuda_device):
+    """(6000, 8000) +-1: 47 tile rows in bands of 11 and 12 (1128 tiles,
+    8 whole waves and 72 split tiles on 132 SMs), int8 and bf16 bit-equal
+    to the plain version."""
+    n, p = 6000, 8000
+    X, _ = sign_field_sums(13, n, p, *pad_to(n, p), cuda_device)
+    G = syrk(X, pm1=True)
+    torch.cuda.synchronize()
+    assert torch.equal(G, syrk_reference(X))
+    Xb = X.to(torch.bfloat16)
+    assert torch.equal(syrk(Xb), syrk_reference(Xb))
 
 
 @pytest.mark.cuda

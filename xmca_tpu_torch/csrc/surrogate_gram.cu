@@ -120,14 +120,17 @@ gen_chunk_kernel(uint8_t* __restrict__ slot, int ld,
 // G (n_pad, n_pad) f32 <- X X^T and colsum (p,) f32 <- X^T 1 for the
 // generated (n, p) field of `seed` (dist id as in gen_draw.cuh).  slot is
 // (n_pad, ld) int8 (is_int8 = 1: +-1 dists only) or bf16, 16-byte
-// aligned; work holds K1's split pieces for the largest chunk.  plan holds
-// n_chunks rows of (col0, width, kblocks, grid, dp_tiles, split_tiles,
-// splits): the chunks of ops/surrogate.py:chunk_plan in order, each with
-// its ops/syrk.py:schedule.  The caller guarantees n_pad % 128 == 0,
-// n <= n_pad, widths that are multiples of 128 and at most ld.  Returns
-// the first CUDA error of the launches.
+// aligned; work holds K1's split pieces for the largest chunk; order is
+// K1's tile order of n_pad on the card (ops/syrk.py:tile_order) and
+// waves its wave counter (4 bytes on the card, or nullptr).  plan
+// holds n_chunks rows of (col0, width, kblocks, grid, dp_tiles,
+// split_tiles, splits): the chunks of ops/surrogate.py:chunk_plan in
+// order, each with its ops/syrk.py:schedule.  The caller guarantees
+// n_pad % 128 == 0, n <= n_pad, widths that are multiples of 128 and at
+// most ld.  Returns the first CUDA error of the launches.
 extern "C" int xmca_surrogate_gram(void* G, void* colsum, void* slot,
-                                   void* work, int n, int p, int n_pad,
+                                   void* work, const void* order,
+                                   void* waves, int n, int p, int n_pad,
                                    int ld, int is_int8, unsigned seed,
                                    int dist, const int* plan, int n_chunks,
                                    void* stream) {
@@ -155,7 +158,9 @@ extern "C" int xmca_surrogate_gram(void* G, void* colsum, void* slot,
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     const xmca::SyrkSched sched{n_pad, c[2], c[4], c[5], c[6], i > 0,
-                                i == n_chunks - 1};
+                                i == n_chunks - 1,
+                                static_cast<const int2*>(order),
+                                static_cast<unsigned*>(waves)};
     err = xmca::syrk_launch(map, static_cast<float*>(G),
                             static_cast<uint32_t*>(work), sched, c[3],
                             is_int8, s);

@@ -29,6 +29,23 @@
 //   not leave 128 SMs idle.  Pieces go to a workspace the wrapper
 //   allocates and a second kernel sums them in a fixed order; the
 //   schedule is computed in ops/syrk.py:schedule.
+// * X is far larger than the 50 MB L2 (205 MB at n_pad = 2048, 1.47 GB
+//   at 14720; a 128-row panel is 12.8 MB), so a panel slice comes from
+//   L2 only if the other tiles that read it ask for it at about the same
+//   contraction step.  In one wave they start together; from two whole
+//   waves on (n_pad >= 2944) two things keep them together:
+//   - the tile order is a table the kernel reads (ops/syrk.py:
+//     tile_order): bands of ~sqrt(132) = 11 tile rows walked column by
+//     column, so a wave of 132 tiles reads ~24 row panels, not up to
+//     all of them (115 at n_pad = 14720 in row-major order);
+//   - a wave barrier: a block's producer waits for every block before it
+//     loads its next whole tile.  Without it the blocks drift apart
+//     along the contraction, the tiles stream their panels from HBM
+//     about as if there were no L2, and the order alone changes nothing
+//     (on an H100 SXM at 700 W, n_pad = 14720 int8: ~46 ms without the
+//     barrier, ~18 ms with it, ~42 ms in row-major order without it;
+//     PERF.md).  The barrier costs the wave's spread, not a pipeline
+//     drain: the consumers still finish the previous tile meanwhile.
 // * one wgmma group stays in flight while the next block's is queued.
 //   int8 sums stay in s32 registers (exact).  bf16 partial sums restart
 //   from zero every kFoldBlocks blocks (256 products) and are folded into
@@ -36,7 +53,8 @@
 //   accumulate truncates: a one-sided drift of 5.1e-4 of max|G| at full
 //   width without a fold, ~1.7e-5 with this one (PERF.md).
 // * every value is written to G[i, j] and G[j, i], so G is exactly
-//   symmetric, and no atomics are used, so every run gives the same bits.
+//   symmetric, and no atomic touches G (the wave counter is the only
+//   one), so every run gives the same bits.
 // * an accumulate mode (syrk.cuh) for surrogate_gram.cu, which runs this
 //   kernel once per generated column chunk of one field: the lower
 //   triangle adds its value to what G holds (each element has one owner,
@@ -223,12 +241,34 @@ __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// Lower-triangle tile t -> (ti, tj), tj <= ti.
-__device__ __forceinline__ void tile_of(int t, int& ti, int& tj) {
-  ti = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  while (ti * (ti + 1) / 2 > t) --ti;
-  tj = t - ti * (ti + 1) / 2;
+// Tile t of the schedule -> (ti, tj), tj <= ti: entry t of the order.
+__device__ __forceinline__ void tile_of(const SyrkSched& s, int t, int& ti,
+                                        int& tj) {
+  const int2 c = s.order[t];
+  ti = c.x;
+  tj = c.y;
+}
+
+// Wave barrier u: the block's arrival makes the counter reach u * grid
+// once every block has arrived u times.  Like mbar_wait it traps rather
+// than hang, after ~2 s plus ~2 us a contraction block (a tile's time).
+__device__ __forceinline__ void wave_wait(const SyrkSched& s, unsigned u) {
+  asm volatile("red.release.gpu.add.u32 [%0], 1;\n"
+               :: "l"(s.waves) : "memory");
+  const unsigned target = u * gridDim.x;
+  const long long limit = (1ll << 32) + 4096ll * s.kblocks;
+  long long start = 0;
+  while (true) {
+    unsigned v;
+    asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                 : "=r"(v) : "l"(s.waves) : "memory");
+    if (v >= target) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > limit) {
+      __trap();
+    }
+  }
 }
 
 // Work unit u of this block (ops/syrk.py:work_units): contraction blocks
@@ -282,8 +322,9 @@ syrk_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ G,
     uint32_t phase = 0;
     for (int u = 0; u < n_units; ++u) {
       const Unit w = unit_of(s, u);
+      if (s.waves != nullptr && u > 0 && w.slot < 0) wave_wait(s, u);
       int ti, tj;
-      tile_of(w.t, ti, tj);
+      tile_of(s, w.t, ti, tj);
       const bool diag = ti == tj;
       for (int kb = w.k0; kb < w.k1; ++kb) {
         mbar_wait(&empty[stage], phase ^ 1);
@@ -319,7 +360,7 @@ syrk_kernel(const __grid_constant__ CUtensorMap xmap, float* __restrict__ G,
   for (int u = 0; u < n_units; ++u) {
     const Unit w = unit_of(s, u);
     int ti, tj;
-    tile_of(w.t, ti, tj);
+    tile_of(s, w.t, ti, tj);
     const bool diag = ti == tj;
     // int8 sums the whole unit in acc; bf16 restarts acc every chunk of
     // kFoldBlocks blocks and folds it into total.  The waits sit outside
@@ -414,7 +455,7 @@ split_sum_kernel(const uint32_t* __restrict__ work, float* __restrict__ G,
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = e / kTile, c = e % kTile;
   int ti, tj;
-  tile_of(s.dp_tiles + blockIdx.y, ti, tj);
+  tile_of(s, s.dp_tiles + blockIdx.y, ti, tj);
   if (ti == tj && c > r) return;
   const uint32_t* p =
       work + static_cast<size_t>(blockIdx.y) * s.splits * kTileElems + e;
@@ -464,9 +505,25 @@ int launch(const CUtensorMap& map, float* G, uint32_t* work,
       syrk_kernel<kInt8, kAccumulate>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  syrk_kernel<kInt8, kAccumulate><<<grid, kThreads, kSmemBytes, stream>>>(
-      map, G, work, s);
-  err = cudaGetLastError();
+  if (s.waves != nullptr) {
+    err = cudaMemsetAsync(s.waves, 0, sizeof(unsigned), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // the wave barrier needs every block resident: a cooperative launch
+  // guarantees it or fails
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = s.waves != nullptr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, syrk_kernel<kInt8, kAccumulate>, map, G,
+                           work, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || s.split_tiles == 0) return static_cast<int>(err);
   split_sum_kernel<kInt8><<<dim3(kTileElems / 256, s.split_tiles), 256, 0,
                             stream>>>(work, G, s);
@@ -522,19 +579,23 @@ extern "C" int xmca_syrk_smem_bytes() { return kSmemBytes; }
 // G (n_pad, n_pad) f32 <- X X^T for X (n_pad, p_pad) int8 (is_int8=1) or
 // bf16 (is_int8=0), row-major and contiguous, on the schedule of
 // ops/syrk.py:schedule (kblocks, grid, dp_tiles, split_tiles, splits);
-// work holds split_tiles * splits tiles of 128 x 128 4-byte values.  The
-// caller guarantees n_pad % 128 == 0, p_pad % 128 == 0, a 16-byte
-// aligned X and (int8) no int32 overflow.  Returns a cudaError_t: the
-// launch's, or cudaErrorSharedObjectSymbolNotFound /
+// order holds ops/syrk.py:tile_order as int32 (tile row, tile column)
+// pairs on the card; waves is 4 bytes on the card for the wave barrier,
+// or nullptr for none; work holds split_tiles * splits tiles of 128 x 128
+// 4-byte values.  The caller guarantees n_pad % 128 == 0, p_pad % 128 ==
+// 0, a 16-byte aligned X and (int8) no int32 overflow.  Returns a
+// cudaError_t: the launch's, or cudaErrorSharedObjectSymbolNotFound /
 // cudaErrorInvalidValue when the tensor map cannot be made.
-extern "C" int xmca_syrk(const void* X, void* G, void* work, int n_pad,
-                         int p_pad, int is_int8, int kblocks, int grid,
-                         int dp_tiles, int split_tiles, int splits,
-                         void* stream) {
+extern "C" int xmca_syrk(const void* X, void* G, void* work,
+                         const void* order, void* waves, int n_pad, int p_pad,
+                         int is_int8, int kblocks, int grid, int dp_tiles,
+                         int split_tiles, int splits, void* stream) {
   CUtensorMap map;
   const int err = xmca::syrk_tensor_map(&map, X, n_pad, p_pad, is_int8);
   if (err != 0) return err;
-  const SyrkSched s{n_pad, kblocks, dp_tiles, split_tiles, splits, 0, 1};
+  const SyrkSched s{n_pad, kblocks, dp_tiles, split_tiles, splits, 0, 1,
+                    static_cast<const int2*>(order),
+                    static_cast<unsigned*>(waves)};
   return xmca::syrk_launch(map, static_cast<float*>(G),
                            static_cast<uint32_t*>(work), s, grid, is_int8,
                            static_cast<cudaStream_t>(stream));

@@ -11,10 +11,17 @@ namespace xmca {
 // One launch: the schedule of ops/syrk.py:schedule and the epilogue mode.
 // accumulate = 0 stores each lower-triangle value, 1 adds it to what G
 // holds; mirror = 1 also writes the value to G[j, i].  The +-1 main path
-// (xmca_syrk) stores and mirrors.
+// (xmca_syrk) stores and mirrors.  order (on the card) is
+// ops/syrk.py:tile_order: tile t of the schedule is the output tile
+// (order[t].x, order[t].y), tile row and tile column.  waves (a 4-byte
+// counter on the card, or nullptr) makes every block wait for all the
+// others before it starts its next whole tile: syrk_launch zeroes it and
+// launches the kernel cooperatively, so that every block is resident.
 struct SyrkSched {
   int n_pad, kblocks, dp_tiles, split_tiles, splits;
   int accumulate, mirror;
+  const int2* order;
+  unsigned* waves;
 };
 
 // TMA tensor map of a row-major X of n_pad rows and ld elements a row

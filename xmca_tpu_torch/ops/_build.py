@@ -42,12 +42,12 @@ _U = ctypes.c_uint
 # C signature of every entry point: argtypes; restype int (a cudaError_t,
 # or a size for xmca_syrk_smem_bytes)
 _SIGNATURES = {
-    'xmca_syrk': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    'xmca_syrk': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     'xmca_syrk_smem_bytes': [],
     'xmca_sign_field_sums': [_P, _P, _I, _I, _I, _I, _U, _U, _P],
     'xmca_surrogate_field': [_P, _I, _I, _U, _I, _P],
-    'xmca_surrogate_gram': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I,
-                            _P, _I, _P],
+    'xmca_surrogate_gram': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _U, _I, _P, _I, _P],
     'xmca_surrogate_project': [_P, _P, _I, _I, _I, _U, _I, _P],
 }
 

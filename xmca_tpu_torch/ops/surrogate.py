@@ -44,7 +44,8 @@ import torch
 
 from xmca_tpu_torch.ops import _build
 from xmca_tpu_torch.ops.syrk import (COL_PAD, ROW_PAD, TILE, _sm_count,
-                                     schedule, workspace_tiles)
+                                     data_ptr, order_table, schedule,
+                                     wave_counter, workspace_tiles)
 
 __all__ = ['sign_field_sums', 'sign_field_sums_reference', 'philox4x32_10',
            'SIGN_SALT', 'SIGN_STREAM', 'GEN_STREAM', 'GEN_DISTS',
@@ -346,9 +347,13 @@ def surrogate_gram(seed, n, p, dist, device, chunk_cols=CHUNK_COLS):
                        else torch.bfloat16, device=device)
     work = torch.empty((max(workspace_tiles(s) for s in scheds), TILE,
                         TILE), dtype=torch.int32, device=device)
+    order = order_table(n_pad, sms, device)
+    # the chunks share n_pad, so their whole waves and grid
+    waves = wave_counter(scheds[0], device)
     err = lib.xmca_surrogate_gram(
         G.data_ptr(), colsum.data_ptr(), slot.data_ptr(), work.data_ptr(),
-        n, p, n_pad, ld, int(pm1), int(seed) & _MASK32,
+        order.data_ptr(), data_ptr(waves), n, p, n_pad, ld, int(pm1),
+        int(seed) & _MASK32,
         GEN_DISTS.index(dist), (ctypes.c_int * len(rows))(*rows), len(plan),
         _build.stream_of(G))
     _build.check(err, 'surrogate_gram')

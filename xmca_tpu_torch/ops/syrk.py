@@ -18,6 +18,16 @@ after the last whole wave are split along the contraction into
 Each piece writes its partial tile to a workspace that the wrapper
 allocates, and a second pass sums the pieces of each tile in a fixed
 order (integer-exact for int8, the same bits on every run for bf16).
+
+Tile ``t`` of the work list is entry ``t`` of :func:`tile_order`, a
+table of (tile row, tile column) pairs that the kernel reads from the
+card (one copy a shape and device, cached).  The order walks bands of
+about ``sqrt(sms)`` tile rows column by column, so the ``sms`` tiles of
+one wave read about ``2 sqrt(sms)`` row panels of X, not all of them
+(:func:`wave_panels` counts them).  From two whole waves on, a wave
+barrier (:func:`wave_counter`) keeps the blocks at the same contraction
+step, so that the L2 cache serves each panel slice to every tile of the
+wave that reads it.
 """
 import collections
 import functools
@@ -28,7 +38,8 @@ import torch
 from xmca_tpu_torch.ops import _build
 
 __all__ = ['syrk', 'syrk_reference', 'pad_to', 'schedule', 'work_units',
-           'workspace_tiles', 'tile_coords', 'ROW_PAD', 'COL_PAD', 'TILE']
+           'workspace_tiles', 'tile_order', 'wave_panels', 'ROW_PAD',
+           'COL_PAD', 'TILE']
 
 ROW_PAD = 128        # n_pad multiple (the kernel's tile is 128 rows)
 COL_PAD = 128        # p_pad multiple (128-byte contraction blocks)
@@ -36,6 +47,12 @@ TILE = 128           # output tile of the kernel (rows == cols)
 KBLOCK_BYTES = 128   # contraction bytes per pipeline stage
 MIN_SPLIT_KBLOCKS = 4   # no contraction piece is shorter than this
 _INT32_MAX = 2 ** 31 - 1
+# tile rows of a band of tile_order; None: chosen from the SM count
+# (chip_smoke.py sets it for its sweep)
+_BAND = None
+# the wave barrier at two whole waves or more; chip_smoke.py turns it off
+# to show what it buys
+_WAVE_BARRIER = True
 
 Schedule = collections.namedtuple(
     'Schedule', 'tiles kblocks grid dp_tiles split_tiles splits')
@@ -45,7 +62,8 @@ tiles: lower-triangle tiles; kblocks: 128-byte contraction blocks;
 grid: blocks launched; dp_tiles: tiles taken whole (block b takes tiles
 b, b + grid, ...); split_tiles: the tiles after them, each cut into
 ``splits`` contraction pieces (block b < split_tiles * splits takes
-piece b % splits of tile dp_tiles + b // splits).
+piece b % splits of tile dp_tiles + b // splits).  Tile t is entry t of
+:func:`tile_order`.
 """
 
 
@@ -70,8 +88,9 @@ def schedule(n_pad, p_pad, elem_bytes, sms):
 
 def work_units(s, block):
     """The (tile, k0, k1, slot) units of ``block`` in the kernel's order:
-    contraction blocks [k0, k1) of ``tile``; ``slot`` is the workspace
-    tile the piece goes to, or -1 for a whole tile written to G."""
+    contraction blocks [k0, k1) of ``tile`` (an index into
+    :func:`tile_order`); ``slot`` is the workspace tile the piece goes
+    to, or -1 for a whole tile written to G."""
     out = [(t, 0, s.kblocks, -1) for t in range(block, s.dp_tiles, s.grid)]
     if block < s.split_tiles * s.splits:
         i = block % s.splits
@@ -86,10 +105,69 @@ def workspace_tiles(s):
     return s.split_tiles * s.splits
 
 
-def tile_coords(t):
-    """Lower-triangle tile ``t`` -> (tile row, tile column), col <= row."""
-    ti = (math.isqrt(8 * t + 1) - 1) // 2
-    return ti, t - ti * (ti + 1) // 2
+def band_rows(sms):
+    """Tile rows of a band: a wave of ``sms`` tiles spans about ``g``
+    rows and ``sms / g`` columns, ``g + sms / g`` panels, least at
+    ``g = sqrt(sms)``."""
+    return max(1, round(math.sqrt(sms)))
+
+
+def tile_order(n_pad, sms, band=None):
+    """The kernel's tiles in order: a list of (tile row, tile column)
+    pairs, column <= row, each lower-triangle tile once.
+
+    The ``nb = n_pad / TILE`` tile rows are cut into ``ceil(nb / g)``
+    bands of ``g = band or band_rows(sms)`` rows or one fewer (the
+    sizes differ by at most one, so no band is a thin remainder).  A
+    band of rows [r0, r1) is walked column by column, j = 0 .. r1 - 1,
+    each column top down from row max(r0, j): full columns left of the
+    band, then the band's own triangle down to the diagonal.  ``g = 1``
+    is the row-major order.
+    """
+    nb = n_pad // TILE
+    n_bands = -(-nb // min(band or band_rows(sms), nb))
+    base, extra = divmod(nb, n_bands)
+    order, r0 = [], 0
+    for b in range(n_bands):
+        r1 = r0 + base + (b < extra)
+        order += [(i, j) for j in range(r1) for i in range(max(r0, j), r1)]
+        r0 = r1
+    return order
+
+
+def wave_panels(n_pad, sms, band=None):
+    """Distinct row panels of X (tile rows and columns) that each whole
+    wave of ``sms`` consecutive tiles of :func:`tile_order` reads."""
+    order = tile_order(n_pad, sms, band)
+    return [len({p for ij in order[w:w + sms] for p in ij})
+            for w in range(0, len(order) - sms + 1, sms)]
+
+
+@functools.lru_cache(maxsize=None)
+def _order_table(n_pad, sms, band, device):
+    """:func:`tile_order` as an int32 (tiles, 2) tensor on ``device``,
+    copied once a shape."""
+    return torch.tensor(tile_order(n_pad, sms, band), dtype=torch.int32,
+                        device=device)
+
+
+def order_table(n_pad, sms, device):
+    """The kernel's copy of :func:`tile_order` on ``device``."""
+    return _order_table(n_pad, sms, _BAND, device)
+
+
+def wave_counter(s, device):
+    """The kernel's wave counter for schedule ``s``: 4 bytes on
+    ``device`` (the launch zeroes them) where ``s`` has two whole waves
+    or more, else None (no barrier)."""
+    if not _WAVE_BARRIER or s.dp_tiles <= s.grid:
+        return None
+    return torch.empty(1, dtype=torch.int32, device=device)
+
+
+def data_ptr(t):
+    """``t.data_ptr()``, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def syrk_reference(X):
@@ -151,13 +229,17 @@ def syrk(X, pm1=False):
     lib = _build.library()
     n_pad, p_pad = X.shape
     index = X.device.index
-    s = schedule(n_pad, p_pad, X.element_size(), _sm_count(
-        torch.cuda.current_device() if index is None else index))
+    sms = _sm_count(torch.cuda.current_device() if index is None
+                    else index)
+    s = schedule(n_pad, p_pad, X.element_size(), sms)
+    order = order_table(n_pad, sms, X.device)
     G = torch.empty((n_pad, n_pad), dtype=torch.float32, device=X.device)
     work = torch.empty((workspace_tiles(s), TILE, TILE), dtype=torch.int32,
                        device=X.device)
-    err = lib.xmca_syrk(X.data_ptr(), G.data_ptr(), work.data_ptr(), n_pad,
-                        p_pad, int(X.dtype == torch.int8), s.kblocks, s.grid,
+    waves = wave_counter(s, X.device)
+    err = lib.xmca_syrk(X.data_ptr(), G.data_ptr(), work.data_ptr(),
+                        order.data_ptr(), data_ptr(waves), n_pad, p_pad,
+                        int(X.dtype == torch.int8), s.kblocks, s.grid,
                         s.dp_tiles, s.split_tiles, s.splits,
                         _build.stream_of(X))
     _build.check(err, 'syrk')
