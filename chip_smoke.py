@@ -21,7 +21,10 @@
    synthetic (2000 steps x 250 x 400 cells) f32 fields through
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
    solve(complexify=True) -> rotate(10) -> rule_n(N_RUNS)``, with the
-   kernels' launch counters reset just before and read just after;
+   kernels' launch counters reset just before and read just after; then
+   (``project_blocks``) the +-1 back-projection of a run of that model
+   cast in PROJECT_BLOCKS column blocks against the default one block,
+   and ``rule_n`` under that budget against the default;
 4. ``result_path``: every result getter (EOFs, PCs, amplitude and phase,
    both correlation patterns, reconstruction, ``fields``, ``predict``,
    ``scf``, rotation and correlation matrices) on the main path's model,
@@ -107,7 +110,12 @@
    reduction of 25 x B's Gram, the rotated time axis (one pass a field)
    against B's tile under each run's rotation, the space axis (two
    passes a field) with each run's counts-weighted Gram against B's in
-   memory;
+   memory; then ``rule_n(N_WIDE_RUNS)`` of the rotated wide model
+   (``wide_rule_n``: exactly 2 x N_WIDE_RUNS launches of syrk and
+   sign_field_sums, its wall a run, its peak device memory, three column
+   blocks of a run's back-projection against an f64 product) and K1 and
+   K2 at its (2048, 6480000) shape against their plain versions
+   (``wide_kernels``), timed beside their bounds and K1's library call;
 17. ``mesh_path``: the device mesh (``xmca_tpu_torch.parallel``) through
    the JAX package's multi-device flow (``dryrun_multichip``) at the main
    path's width: the unsharded flow, then (a) a world of one rank (NCCL,
@@ -1958,6 +1966,87 @@ def int8_variant(torch):
            'the int8 variant launched {}'.format(launches))
 
 
+PROJECT_BLOCKS = 7   # column blocks the main width's back-projection is
+                     # cut into by project_blocks
+N_BLOCK_RUNS = 4     # rule_n runs under the default and the cut budget
+# a back-projection against another evaluation, rel Frobenius: f32 sums
+# of 2000 +-1 terms, whose largest entries move by ~1e-6 of the largest
+# between two summation orders (the f64 product included)
+PROJECT_TOL = 1e-6
+
+
+def _first_projection(fp, store, keep):
+    """Wrap ``fp._pm1_project`` so that ``keep(X, S, p, result)`` of its
+    first call goes to ``store``; returns what puts it back."""
+    inner = fp._pm1_project
+
+    def first(X, S, p):
+        out = inner(X, S, p)
+        if not store:
+            store.append(keep(X, S, p, out))
+        return out
+    fp._pm1_project = first
+    return lambda: setattr(fp, '_pm1_project', inner)
+
+
+def project_blocks(torch, m):
+    """The +-1 back-projection at the main path's width cut into
+    PROJECT_BLOCKS column blocks (``core.fastpath._PROJECT_BYTES``
+    patched): the first projection of ``m.rule_n(N_BLOCK_RUNS)`` (one
+    block by default) against the same field and weights in blocks, and
+    each against an f64 product, within PROJECT_TOL, each timed; then
+    ``rule_n(N_BLOCK_RUNS)`` under the cut budget against the default,
+    within ROT_STOP_TOL (two rotations of loadings a roundoff apart)."""
+    import numpy as np
+    from xmca_tpu_torch.core import fastpath as fp
+    from xmca_tpu_torch.ops.syrk import pad_to
+    p = N_LAT * N_LON
+    n_pad, p_pad = pad_to(N_OBS, p)
+    first = []
+    restore = _first_projection(fp, first, lambda X, S, p_, out: (X, S, out))
+    ref_null = _vals(m.rule_n(N_BLOCK_RUNS, seed=SEED))
+    restore()
+    X, S, whole = first[0]
+    default = fp._PROJECT_BYTES
+    one = len(range(0, p, fp._pm1_cols(n_pad)))
+    one_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 10)
+    fp._PROJECT_BYTES = 4 * n_pad * -(-p_pad // PROJECT_BLOCKS)
+    try:
+        blocks = len(range(0, p, fp._pm1_cols(n_pad)))
+        cut = fp._pm1_project(X, S, p)
+        cut_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 10)
+        null = _vals(m.rule_n(N_BLOCK_RUNS, seed=SEED))
+    finally:
+        fp._PROJECT_BYTES = default
+    S_pad = torch.zeros((n_pad, S.shape[1]), dtype=torch.float64,
+                        device='cuda')
+    S_pad[:N_OBS] = S.double()
+    exact = (X.double().T @ S_pad)[:p]
+    errs = {name: (float((a.double() - b).abs().max() / b.abs().max()),
+                   float(torch.linalg.norm(a.double() - b)
+                         / torch.linalg.norm(b)))
+            for name, a, b in (('cut vs one', cut, whole.double()),
+                               ('one vs f64', whole, exact),
+                               ('cut vs f64', cut, exact))}
+    var_err = (float(np.abs(null / ref_null - 1).max())
+               if null.shape == ref_null.shape else float('inf'))
+    print('project_blocks at {} x {} (+-1 int8 {} x {}, S {} x {}): {} '
+          'block(s) by default, {} cut: rel (largest entry, Frobenius) {} '
+          '(tol {:g} Frobenius); {:.4f} ms one block, {:.4f} ms in {}; '
+          'rule_n({}) in {} blocks vs one, rotated variance rel {:.2e} (tol '
+          '{:g})'.format(
+              N_OBS, p, n_pad, p_pad, *S.shape, one, blocks, errs,
+              PROJECT_TOL, one_ms, cut_ms, blocks, N_BLOCK_RUNS, blocks,
+              var_err, ROT_STOP_TOL))
+    _check(one == 1 and blocks == PROJECT_BLOCKS,
+           'project_blocks: the default budget casts the main width in more '
+           'than one block, or the cut one not in {}'.format(PROJECT_BLOCKS))
+    _check(all(frob <= PROJECT_TOL for _, frob in errs.values()),
+           'the blocked back-projection differs: {}'.format(errs))
+    _check(var_err <= ROT_STOP_TOL and np.isfinite(null).all(),
+           'rule_n in blocks differs: {:.2e}'.format(var_err))
+
+
 def ensemble_small(torch):
     """Rule-N at 256 x 2 x 512 on the card and on the CPU: the generated
     distributions through the public ``rule_n`` with the CPU's solution
@@ -2037,6 +2126,11 @@ N_EOF_MODES = 8
 # 720) block B, each B or -B, = 2000 x (1800 x 3600) per field
 WIDE_LAT, WIDE_LON, WIDE_TILES = 360, 720, 25
 WIDE_PEAK_GB = 16.0
+N_WIDE_RUNS = 4      # Rule-N runs of the wide record: cut for time only
+# rule_n's device memory above what is allocated before it: two padded
+# int8 fields (13.27 GB each), one 1 GiB f32 block, the projections and
+# the loading stack
+WIDE_RULE_N_GB = 40.0
 
 
 def _launch_gate(label, launches, n_runs):
@@ -2644,7 +2738,172 @@ def wide_stream_path(torch, card, peak_800mb):
     _check(ms._analysis['is_rotated'] and np.isfinite(s_wide).all()
            and np.isfinite(_vals(ms.variance())).all(),
            'wide path: not rotated or non-finite results')
-    return {'walls': walls, 'peak_gb': peak, 'passes': solve_passes}
+    k1, k2 = wide_rule_n(torch, ms, p, card)
+    return {'walls': walls, 'peak_gb': peak, 'passes': solve_passes,
+            'k1': k1, 'k2': k2}
+
+
+def _call_walls(torch, module, name, walls):
+    """Wrap ``module.name`` so that the host seconds of each call,
+    between two device synchronizes, go to ``walls``; returns what puts
+    it back."""
+    inner = getattr(module, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, timed)
+    return lambda: setattr(module, name, inner)
+
+
+def wide_rule_n(torch, ms, p, card):
+    """``rule_n(N_WIDE_RUNS)`` of the rotated wide model: two padded +-1
+    int8 fields of (2048, p) a run, their back-projection cast in column
+    blocks.  Exactly 2 x N_WIDE_RUNS launches of K1 and K2, every run
+    kept and finite, the peak device memory above what is allocated
+    before the call under WIDE_RULE_N_GB.  Run 0's left field is drawn
+    again after the call (its first 128 columns checked against the
+    run's): the run's projection on its first, a middle and its last
+    column block against an f64 product of those columns and the run's
+    weights, within PROJECT_TOL.  Then K1 and K2 at
+    this shape (:func:`wide_kernels`)."""
+    import numpy as np
+    from xmca_tpu_torch.core import fastpath as fp
+    from xmca_tpu_torch.core.rotation import ensemble_space
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.ops.surrogate import sign_field_sums
+    from xmca_tpu_torch.ops.syrk import pad_to
+    from xmca_tpu_torch.stats.significance import run_seeds
+    label = 'wide_stream_path rule_n({})'.format(N_WIDE_RUNS)
+    n_pad, p_pad = pad_to(N_OBS, p)
+    first, run_walls, walls = [], [], {}
+    restore = [
+        _first_projection(fp, first, lambda X, S, p_, out: (
+            X[:, :128].clone(), S.clone(), out.cpu())),
+        _call_walls(torch, fp, 'fast_surrogate_variance_tri', run_walls)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    null = _timed(torch, walls, 'rule_n', lambda: _vals(
+        ms.rule_n(N_WIDE_RUNS, seed=SEED)))
+    launches = _build.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for put_back in restore:
+        put_back()
+    iters = ms._rule_n_iterations
+    space = ensemble_space(2 * p, N_ROT, 8)
+
+    # run 0's left field again, its projection block by block in f64
+    head, S, out = first[0]
+    s0 = run_seeds(SEED, N_WIDE_RUNS)[0]
+    X, _ = sign_field_sums((2 * s0) & 0xFFFFFFFF, N_OBS, p, n_pad, p_pad,
+                           'cuda')
+    same_field = torch.equal(X[:, :128], head)
+    S_pad = torch.zeros((n_pad, S.shape[1]), dtype=torch.float64,
+                        device='cuda')
+    S_pad[:N_OBS] = S.double()
+    cols = fp._pm1_cols(n_pad)
+    starts = list(range(0, p, cols))
+    block_err = []
+    for c0 in (starts[0], starts[len(starts) // 2], starts[-1]):
+        ref = (X[:, c0:c0 + cols].double().T @ S_pad).cpu()
+        got = out[c0:c0 + ref.shape[0]].double()
+        block_err.append((c0, ref.shape[0], float(
+            (got - ref).abs().max() / ref.abs().max()), float(
+            torch.linalg.norm(got - ref) / torch.linalg.norm(ref))))
+        del ref
+    proj_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 3)
+    del X, S_pad, out
+    torch.cuda.empty_cache()
+    field_gb = n_pad * p_pad / 1e9
+    print('{} at {} x 2 x {} (+-1 int8 fields {} x {}, {:.2f} GB each): '
+          '{:.3f} s, a run {} s; kept {} of {}; launches {}; peak device '
+          'memory {:.2f} GB above the {:.2f} GB allocated before (tol {:g} '
+          'GB); promax in {!r} space (ensemble_space of {} x {} c64); '
+          'rule_n iterations {}; null {}; {}'.format(
+              label, N_OBS, p, n_pad, p_pad, field_gb, walls['rule_n'],
+              np.array2string(np.asarray(run_walls), precision=4),
+              null.shape[1], N_WIDE_RUNS, launches, peak, base / 1e9,
+              WIDE_RULE_N_GB, space, 2 * p, N_ROT,
+              np.asarray(iters).tolist(),
+              np.array2string(null[:, 0], precision=4), card))
+    print('{} back-projection: {} blocks of {} columns; run 0\'s left '
+          'field drawn again (its first 128 columns equal the run\'s: {}), '
+          'blocks (first column, width, rel vs f64: largest entry, '
+          'Frobenius) {} (tol {:g} Frobenius); '
+          '_pm1_project {:.4f} ms a field (the int8 field read once: '
+          '{:.4f} ms at {:g} B/s)'.format(
+              label, len(starts), cols, same_field, block_err,
+              PROJECT_TOL, proj_ms,
+              1e3 * n_pad * p_pad / PEAK_BYTES, PEAK_BYTES))
+    _launch_gate(label, launches, N_WIDE_RUNS)
+    _check(null.shape == (N_ROT, N_WIDE_RUNS) and np.isfinite(null).all(),
+           '{}: kept {} of {} runs, finite {}'.format(
+               label, null.shape[1], N_WIDE_RUNS,
+               bool(np.isfinite(null).all())))
+    _check(peak < WIDE_RULE_N_GB, '{} took {:.2f} GB'.format(label, peak))
+    _check(same_field and len(starts) > 2
+           and all(frob <= PROJECT_TOL for _, _, _, frob in block_err),
+           '{}: the blocked back-projection differs from f64: {}'.format(
+               label, block_err))
+    k1, k2 = wide_kernels(torch, p)
+    return (dict(k1, launches=launches['syrk']),
+            dict(k2, launches=launches['sign_field_sums']))
+
+
+def wide_kernels(torch, p):
+    """K1 (int8) and K2 at the wide record's (2048, p) padded shape:
+    bit-equal to their plain versions (K1's summed in f64 column blocks,
+    K2's drawn in row blocks), K1 per launch
+    (median, least, largest of 5) beside ``torch._int_mm``'s full
+    product, both beside their bounds."""
+    from xmca_tpu_torch.ops.surrogate import (sign_field_sums,
+                                              sign_field_sums_reference)
+    from xmca_tpu_torch.ops.syrk import pad_to, syrk, syrk_reference
+    n_pad, p_pad = pad_to(N_OBS, p)
+    X, s = sign_field_sums(97, N_OBS, p, n_pad, p_pad, 'cuda')
+    Xr, sr = sign_field_sums_reference(97, N_OBS, p, n_pad, p_pad, 'cuda')
+    torch.cuda.synchronize()
+    k2_equal = torch.equal(X, Xr) and torch.equal(s, sr)
+    del Xr, sr
+    _check(k2_equal, 'sign_field_sums differs at {}'.format((N_OBS, p)))
+    G, ref = syrk(X, pm1=True), syrk_reference(X)
+    torch.cuda.synchronize()
+    k1_err = float((G - ref).abs().max())
+    _check(torch.equal(G, ref), 'syrk int8 differs at {}'.format(
+        (n_pad, p_pad)))
+    del G, ref
+    k1 = dict(shape=[n_pad, p_pad], max_abs_err=k1_err,
+              **_launch_ms(torch, lambda: syrk(X, pm1=True), 5),
+              plain_ms=_time_ms(torch, lambda: syrk_reference(X), 1),
+              library_ms=_launch_ms(torch, lambda: torch._int_mm(X, X.T),
+                                    3)['ms'],
+              **_gram_bound(n_pad, p_pad, 1, 'int8'))
+    del X, s
+    k2 = dict(shape=[n_pad, p_pad], max_abs_err=0.0,
+              ms=_time_ms(torch, lambda: sign_field_sums(
+                  5, N_OBS, p, n_pad, p_pad, 'cuda'), 5),
+              plain_ms=_time_ms(torch, lambda: sign_field_sums_reference(
+                  5, N_OBS, p, n_pad, p_pad, 'cuda'), 1),
+              library_ms=None,
+              **bound(nbytes=n_pad * p_pad + 4 * p_pad,
+                      calls=N_OBS * p_pad // 128))
+    for name, k in (('syrk int8', k1), ('sign_field_sums', k2)):
+        print('{} at {}: bit-equal to plain; kernel {} = {:.1f}% of its '
+              'bound {:.4f} ms ({}); plain {:.3f} ms; library {}'.format(
+                  name, tuple(k['shape']),
+                  _spread(k) if 'ms_min' in k else '{:.4f} ms'.format(
+                      k['ms']),
+                  100 * k['bound_ms'] / k['ms'], k['bound_ms'],
+                  k['bound_by'], k['plain_ms'],
+                  'torch._int_mm(X, X.T) {:.4f} ms'.format(k['library_ms'])
+                  if k['library_ms'] else 'none'))
+    return k1, k2
 
 
 WIDE_BOOT_ROT = 4    # rotated time-axis runs on the wide record: cut for
@@ -3421,6 +3680,7 @@ def main():
     _check(np.isfinite(null).all() and np.isfinite(var).all(),
            'non-finite results')
 
+    project_blocks(torch, m)
     result_path(torch, m)
     dense_path(torch, left, right, m)
     boot_path(torch, m, card)
@@ -3466,16 +3726,18 @@ def main():
     stream_boot_small(torch)
     long_k1, long_k2, _ = long_path(torch, card)
     torch.cuda.empty_cache()
-    wide_stream_path(torch, card, stream_peak)
+    wide = wide_stream_path(torch, card, stream_peak)
 
     kernels = [
         dict(name='syrk', route='cuda', source='xmca_tpu_torch/csrc/syrk.cu',
              replaces='xmca_tpu/ops/syrk.py:95',
-             launches=launches['syrk'], long=long_k1, **k1),
+             launches=launches['syrk'], long=long_k1, wide=wide['k1'],
+             **k1),
         dict(name='sign_field_sums', route='cuda',
              source='xmca_tpu_torch/csrc/sign_field.cu',
              replaces='xmca_tpu/ops/surrogate.py:403',
-             launches=launches['sign_field_sums'], long=long_k2, **k2),
+             launches=launches['sign_field_sums'], long=long_k2,
+             wide=wide['k2'], **k2),
         dict(name='surrogate_gram', route='cuda',
              source='xmca_tpu_torch/csrc/surrogate_gram.cu',
              replaces='xmca_tpu/ops/surrogate.py:177',

@@ -268,6 +268,30 @@ def test_streamed_public_rotate_and_rulen(disk_fields):
     assert_allclose(surr, mm.rule_n(4, seed=5), rtol=1e-8)
 
 
+def test_streamed_rotated_rulen_in_column_blocks(disk_fields, monkeypatch):
+    """A rotated chunk-backed model's Rule-N, its +-1 fields cast to f32
+    in 96-column blocks for the back-projection (P = 700 of 768 padded
+    columns: 8 blocks a field, the last 28 columns and 68 of pad), equals
+    the in-memory model's under the same budget."""
+    ms, mm = _streamed(disk_fields), _in_memory(disk_fields)
+    for m in (ms, mm):
+        m.rotate(4)
+    monkeypatch.setattr(fp, '_PROJECT_BYTES', 4 * 128 * 96)
+    widths = []
+    inner = fp._pm1_blocks
+
+    def counted(X, stop):
+        for c0, block in inner(X, stop):
+            widths.append(block.shape[1])
+            yield c0, block
+    monkeypatch.setattr(fp, '_pm1_blocks', counted)
+    surr = ms.rule_n(4, seed=5)
+    # 4 runs x 2 fields x 8 blocks, the last of each 768 - 672 wide
+    assert widths == 2 * 4 * ([96] * 8)
+    assert np.isfinite(surr).all() and surr.shape == (4, 4)
+    assert_allclose(surr, mm.rule_n(4, seed=5), rtol=1e-8)
+
+
 def test_streamed_complex_solve_matches_in_memory(disk_fields):
     ms = _streamed(disk_fields, complexify=True)
     mm = _in_memory(disk_fields, complexify=True)

@@ -179,21 +179,25 @@ def test_surrogate_variance_matches_jax(source, spectrum, cplx, rotated):
 
 
 # ---------------------------------------------------------- int8 variant
-def test_int8_centered_gram_matches_jax():
+def test_int8_centered_gram_matches_jax(monkeypatch):
     """The raw Gram and the column means are exact integers in both
-    packages; the centered Gram and ``w = X mu`` are f32 sums."""
+    packages; the centered Gram and ``w = X mu`` are f32 sums.  The port
+    returns no f32 copy of the field: its ``w`` is summed over column
+    blocks of the field, here the default budget (one block) and 10
+    columns a block (9 blocks, the last 3 columns)."""
     rng = np.random.default_rng(3)
     X = np.where(rng.integers(0, 2, (37, 83)) == 1, 1, -1).astype(np.int8)
-    Gc_j, mu_j, Xb_j = jfast._int8_centered_gram(jnp.asarray(X))
-    Gc_t, mu_t, Xf_t = tfast._int8_centered_gram(_t(X))
+    Gc_j, mu_j, _ = jfast._int8_centered_gram(jnp.asarray(X))
     G = X.astype(np.int64) @ X.astype(np.int64).T
     np.testing.assert_array_equal(tfast._int8_gram(_t(X)).numpy(), G)
-    np.testing.assert_array_equal(mu_t.numpy(), np.asarray(mu_j))
-    np.testing.assert_array_equal(Xf_t.numpy(), np.asarray(
-        Xb_j.astype(jnp.float32)))
-    assert Gc_t.dtype == torch.float32
-    np.testing.assert_allclose(Gc_t.numpy(), np.asarray(Gc_j), rtol=0,
-                               atol=1e-6 * np.abs(G).max())
+    for cols in (None, 10):
+        if cols is not None:
+            monkeypatch.setattr(tfast, '_PROJECT_BYTES', 4 * 37 * cols)
+        Gc_t, mu_t = tfast._int8_centered_gram(_t(X))
+        np.testing.assert_array_equal(mu_t.numpy(), np.asarray(mu_j))
+        assert Gc_t.dtype == torch.float32
+        np.testing.assert_allclose(Gc_t.numpy(), np.asarray(Gc_j), rtol=0,
+                                   atol=1e-6 * np.abs(G).max())
 
 
 @pytest.mark.parametrize('cplx', [False, True])

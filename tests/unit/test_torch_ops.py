@@ -63,6 +63,19 @@ def test_sign_field_sums_reference_mask_and_sums():
     assert not torch.equal(X, X3)
 
 
+def test_sign_field_sums_reference_row_blocks(monkeypatch):
+    """Drawn in blocks of 7 rows (the last of 4, the pad rows from 200
+    on inside one), the reference gives the one-block field and sums
+    bit for bit."""
+    from xmca_tpu_torch.ops import surrogate as sur
+    n, p = 200, 3000
+    n_pad, p_pad = pad_to(n, p)
+    X, colsum = sign_field_sums_reference(11, n, p, n_pad, p_pad)
+    monkeypatch.setattr(sur, '_REF_LANES', 7 * 32 * (p_pad // 128))
+    Xb, colsum_b = sign_field_sums_reference(11, n, p, n_pad, p_pad)
+    assert torch.equal(X, Xb) and torch.equal(colsum, colsum_b)
+
+
 def test_sign_field_sums_bit_mapping():
     """Element (r, 128 g + 32 w + b) is bit b of Philox word w at
     counter (r, g, 0, 0) under key (seed ^ salt, 0)."""
@@ -91,6 +104,19 @@ def test_syrk_reference_matches_jax_syrk_int8():
     G = syrk(torch.from_numpy(X), pm1=True).numpy()
     np.testing.assert_array_equal(G, G_jax)
     np.testing.assert_array_equal(G, G.T)
+
+
+def test_syrk_reference_int8_column_blocks(monkeypatch):
+    """Summed over column blocks of 100 (the last of 56), the plain int8
+    Gram is the exact one bit for bit."""
+    from xmca_tpu_torch.ops import syrk as syrk_mod
+    rng = np.random.default_rng(4)
+    X = rng.integers(-127, 128, size=(128, 256)).astype(np.int8)
+    X[:, 250:] = 0
+    monkeypatch.setattr(syrk_mod, '_REF_BYTES', 8 * 128 * 100)
+    G = syrk_reference(torch.from_numpy(X)).numpy()
+    exact = X.astype(np.int64) @ X.astype(np.int64).T
+    np.testing.assert_array_equal(G, exact.astype(np.float32))
 
 
 def test_syrk_reference_matches_jax_syrk_bf16():

@@ -11,6 +11,11 @@ function's own f32/c64 dtypes, so the tolerance is f32-sized: the
 Gram is integer-exact on both sides, and the remaining difference is
 f32 roundoff through Cholesky, the subspace iteration and the rotation
 fixed point (mode space adds ~1e-3, see rotation.ensemble_space).
+
+The rotated tails run again with the port's back-projection budget
+(``core.fastpath._PROJECT_BYTES``) patched so that each field is cast
+to f32 in ragged column blocks; ``_pm1_project`` itself is held against
+a float64 product for one, two, ragged and one-column blocks.
 """
 import numpy as np
 import pytest
@@ -34,6 +39,21 @@ def _fields(seed):
     rng = np.random.default_rng(seed)
     return [rng.choice(np.array([-1, 1], np.int8), size=(N_OBS, p))
             for p in N_VARS]
+
+
+def _block_budget(monkeypatch, cols):
+    """Patch the back-projection budget to ``cols`` columns a block of a
+    field padded to N_OBS's rows; count the projections it serves."""
+    monkeypatch.setattr(tfast, '_PROJECT_BYTES',
+                        4 * pad_to(N_OBS, 1)[0] * cols)
+    projected = []
+    inner = tfast._pm1_project
+
+    def counted(X, S, p):
+        projected.append(p)
+        return inner(X, S, p)
+    monkeypatch.setattr(tfast, '_pm1_project', counted)
+    return projected
 
 
 def _run_both(monkeypatch, *, complexify, rotated, n_rot, grade):
@@ -75,9 +95,7 @@ def _run_both(monkeypatch, *, complexify, rotated, n_rot, grade):
     return (np.asarray(var_j), float(tot_j)), (var_t.numpy(), float(tot_t))
 
 
-@pytest.mark.parametrize('grade', ['exact', 'fast'])
-@pytest.mark.parametrize('n_rot, space', [(4, 'mode'), (6, 'data')])
-def test_rotated_complex_tail_matches_jax(monkeypatch, grade, n_rot, space):
+def _complex_tail(monkeypatch, grade, n_rot, space):
     assert ensemble_space(sum(N_VARS), n_rot, 8) == space
     (var_j, tot_j), (var_t, tot_t) = _run_both(
         monkeypatch, complexify=True, rotated=True, n_rot=n_rot,
@@ -87,11 +105,81 @@ def test_rotated_complex_tail_matches_jax(monkeypatch, grade, n_rot, space):
     np.testing.assert_allclose(tot_t, tot_j, rtol=TOL_VAR)
 
 
-def test_rotated_real_tail_matches_jax(monkeypatch):
+def _real_tail(monkeypatch):
     (var_j, tot_j), (var_t, tot_t) = _run_both(
         monkeypatch, complexify=False, rotated=True, n_rot=4,
         grade='fast')
     np.testing.assert_allclose(var_t, var_j, rtol=TOL_VAR)
+
+
+@pytest.mark.parametrize('grade', ['exact', 'fast'])
+@pytest.mark.parametrize('n_rot, space', [(4, 'mode'), (6, 'data')])
+def test_rotated_complex_tail_matches_jax(monkeypatch, grade, n_rot, space):
+    _complex_tail(monkeypatch, grade, n_rot, space)
+
+
+def test_rotated_real_tail_matches_jax(monkeypatch):
+    _real_tail(monkeypatch)
+
+
+# columns a block: 100 cuts both fields raggedly (300 = 3 x 100; 260 in
+# three, the last 60 columns and 40 of pad), 1 casts a column at a time
+@pytest.mark.parametrize('cols', [100, 1])
+@pytest.mark.parametrize('grade', ['exact', 'fast'])
+@pytest.mark.parametrize('n_rot, space', [(4, 'mode'), (6, 'data')])
+def test_rotated_complex_tail_blocked_matches_jax(monkeypatch, grade, n_rot,
+                                                  space, cols):
+    """The complex tail with the fields cast in column blocks."""
+    projected = _block_budget(monkeypatch, cols)
+    _complex_tail(monkeypatch, grade, n_rot, space)
+    assert projected == list(N_VARS)
+
+
+@pytest.mark.parametrize('cols', [100, 1])
+def test_rotated_real_tail_blocked_matches_jax(monkeypatch, cols):
+    """The real tail with the fields cast in column blocks."""
+    projected = _block_budget(monkeypatch, cols)
+    _real_tail(monkeypatch)
+    assert projected == list(N_VARS)
+
+
+@pytest.mark.parametrize('cols, blocks', [(None, (1, 1)), (192, (2, 2)),
+                                          (128, (3, 3)), (100, (3, 3)),
+                                          (1, N_VARS)])
+def test_pm1_project_blocks_match_float64(monkeypatch, cols, blocks):
+    """``_pm1_project`` of injected padded +-1 fields against
+    ``X.double().T @ S.double()`` within 1e-6 of the largest entry, for
+    one block (the default budget: bit-equal to the whole-field f32
+    product), two, three (ragged at 100: 300 columns in 3 x 100, 260 in
+    100 + 100 + 60 and 40 columns of pad) and one column a block."""
+    if cols is not None:
+        monkeypatch.setattr(tfast, '_PROJECT_BYTES',
+                            4 * pad_to(N_OBS, 1)[0] * cols)
+    seen = []
+    inner = tfast._pm1_blocks
+
+    def counted(X, stop):
+        for c0, block in inner(X, stop):
+            seen.append(block.shape[1])
+            yield c0, block
+    monkeypatch.setattr(tfast, '_pm1_blocks', counted)
+    rng = np.random.default_rng(17)
+    S = torch.from_numpy(rng.standard_normal((N_OBS, 20)).astype(np.float32))
+    for f, p, n_blocks in zip(_fields(11), N_VARS, blocks):
+        X = torch.zeros(pad_to(N_OBS, p), dtype=torch.int8)
+        X[:N_OBS, :p] = torch.from_numpy(f)
+        del seen[:]
+        got = tfast._pm1_project(X, S, p)
+        assert got.dtype == torch.float32 and got.shape == (p, 20)
+        assert len(seen) == n_blocks and sum(seen) >= p
+        ref = (X[:N_OBS].double().T @ S.double())[:p].numpy()
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                   atol=1e-6 * np.abs(ref).max())
+        if cols is None:
+            S_pad = torch.zeros((X.shape[0], 20))
+            S_pad[:N_OBS] = S
+            whole = (S_pad.T @ X.to(torch.float32)).T[:p]
+            assert torch.equal(got, whole)
 
 
 def test_unrotated_complex_spectrum_matches_jax(monkeypatch):

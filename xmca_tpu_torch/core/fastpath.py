@@ -18,7 +18,8 @@ input.  The JAX package's 3-pass ``HIGH`` tier (``_dot_high``) and
 ``grade='fast'``'s single-pass bf16 n x n dot both become f32 here, which
 is more accurate; the
 +-1 surrogate back-projection ``X^T S`` runs in f32 as well (a +-1 field
-is exact in f32, and the product is ~1e-2 of the Gram's work).  The
+is exact in f32, and the product is ~1e-2 of the Gram's work), cast one
+column block at a time (:func:`_pm1_project`).  The
 generated surrogate's kernels round ``S`` to bf16 and sum in f32, as the
 JAX package's kernels do.
 
@@ -365,6 +366,42 @@ def fast_rotated_variance(Xl, Xr, omega, n_rot, power=1, tol=1e-8, n_iter=8,
     return var, conv
 
 
+# the most bytes of f32 that a +-1 field's back-projection (or the int8
+# variant's ``X mu``) casts at once: the JAX package casts inside the
+# contraction, so no f32 copy of a whole field may exist here
+_PROJECT_BYTES = 1 << 30
+
+
+def _pm1_cols(rows):
+    """Columns of one f32 block of a field of ``rows`` rows: as many as
+    ``_PROJECT_BYTES`` holds, at least one."""
+    return max(1, _PROJECT_BYTES // (4 * rows))
+
+
+def _pm1_blocks(X, stop):
+    """``(c0, f32 copy of X[:, c0:c0 + w])`` for the column blocks of an
+    int8 field ``X`` that start below ``stop``, each :func:`_pm1_cols`
+    wide, the last one cut at the field's width."""
+    cols = _pm1_cols(X.shape[0])
+    for c0 in range(0, stop, cols):
+        yield c0, X[:, c0:c0 + cols].to(torch.float32)
+
+
+def _pm1_project(X, S, p):
+    """``X^T S`` (p, m) f32 of a padded +-1 int8 field ``X`` (n_pad,
+    p_pad) and f32 weights ``S`` (n_obs, m), the field cast to f32 one
+    column block at a time (:func:`_pm1_blocks`).  Blocks run over the
+    padded width, so a field of one block gives the whole-field product
+    ``(S_pad^T X)^T`` bit for bit; padded columns are dropped."""
+    S_pad = S.new_zeros((X.shape[0], S.shape[1]))
+    S_pad[:S.shape[0]] = S
+    out = S.new_empty((p, S.shape[1]))
+    for c0, block in _pm1_blocks(X, p):
+        part = (S_pad.T @ block).T
+        out[c0:c0 + part.shape[0]] = part[:p - c0]
+    return out
+
+
 def _fold_jitter(Gc, p, H, complexify, jitter_rel):
     """Analytic fold (when complexified) and jitter of a centered
     surrogate Gram accumulated from f32-exact draws."""
@@ -432,7 +469,8 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
     kernel forms the raw Gram, centering comes from the Gram alone
     (``w = G 1 / n``, ``mu.mu = 1^T G 1 / n^2``), then the analytic fold,
     the jitter, Cholesky, the reduced kernel and the subspace SVD.  The
-    rotated variant back-projects the loadings (``X^T S``, f32) and runs
+    rotated variant back-projects the loadings (``X^T S``, f32, one
+    column block of the field at a time: :func:`_pm1_project`) and runs
     promax in the space :func:`ensemble_space` picks.
 
     ``grade='fast'`` keeps the JAX package's 2e-3 jitter floor; its n x n
@@ -474,11 +512,7 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
         Xs.append(X)
 
     def project(i, S):
-        X = Xs[i]
-        S_pad = torch.zeros((X.shape[0], S.shape[1]), dtype=torch.float32,
-                            device=device)
-        S_pad[:n_obs] = S
-        return (S_pad.T @ X.to(torch.float32)).T[:n_vars[i]]
+        return _pm1_project(Xs[i], S, n_vars[i])
 
     return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
                                complexify, rotated, omega, n_rot, power,
@@ -506,16 +540,17 @@ def _int8_centered_gram(X):
     The raw Gram is one int8 x int8 -> int32 product (exact;
     :func:`_int8_gram`), the column means come from exact int32 sums,
     and centering is the rank-1 identity ``Gc = G - w 1^T - 1 w^T +
-    mu.mu`` with ``w = X mu`` in f32.  Returns ``(Gc f32, mu f32, X as
-    f32)``, the last for the back-projection (+-1 is exact in f32).
+    mu.mu`` with ``w = X mu`` in f32, summed over the column blocks of
+    :func:`_pm1_blocks`.  Returns ``(Gc f32, mu f32)``.
     """
     n = X.shape[0]
     G = _int8_gram(X).to(torch.float32)
     mu = X.sum(dim=0, dtype=torch.int32).to(torch.float32) / n
-    Xf = X.to(torch.float32)
-    w = Xf @ mu
+    w = torch.zeros(n, dtype=torch.float32, device=X.device)
+    for c0, block in _pm1_blocks(X, X.shape[1]):
+        w += block @ mu[c0:c0 + block.shape[1]]
     Gc = G - w[:, None] - w[None, :] + torch.sum(mu * mu)
-    return Gc, mu, Xf
+    return Gc, mu
 
 
 def fast_surrogate_variance_int8(seed, omega, n_obs, n_vars, H=None,
@@ -549,13 +584,13 @@ def fast_surrogate_variance_int8(seed, omega, n_obs, n_vars, H=None,
         n_pad, p_pad = pad_to(n_obs, p)
         X, _ = sign_field_sums((2 * int(seed) + i) & 0xFFFFFFFF, n_obs, p,
                                n_pad, p_pad, device)
-        Gc, mu, Xf = _int8_centered_gram(X[:n_obs, :p])
+        Gc, mu = _int8_centered_gram(X[:n_obs, :p])
         grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
         mus.append(mu)
-        Xs.append(Xf)
+        Xs.append(X)
 
     def project(i, S):
-        return Xs[i].T @ S
+        return _pm1_project(Xs[i], S, n_vars[i])
 
     return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
                                complexify, rotated, omega, n_rot, power,

@@ -69,6 +69,9 @@ CHUNK_COLS = 16384
 _PM1_DISTS = ('rademacher', 'rademacher8')
 _INV_SQRT8 = 0.3535533905932738
 _MASK32 = 0xFFFFFFFF
+# int64 bit lanes (rows x groups x 32) sign_field_sums_reference draws
+# at once
+_REF_LANES = 1 << 27
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
@@ -111,25 +114,34 @@ def _check_shape(n, p, n_pad, p_pad):
 
 def sign_field_sums_reference(seed, n, p, n_pad, p_pad, device='cpu'):
     """Plain PyTorch twin of the kernel: ``(X int8 (n_pad, p_pad),
-    colsum int32 (p_pad,))`` with identical bits."""
+    colsum int32 (p_pad,))`` with identical bits.  Rows are drawn in
+    blocks whose int64 bit lanes stay under ``_REF_LANES``, so a field
+    of 10^10 cells takes little more memory than itself."""
     _check_shape(n, p, n_pad, p_pad)
     groups = p_pad // GROUP
-    rows = torch.arange(n_pad, dtype=torch.int64, device=device)
+    step = max(1, _REF_LANES // (32 * groups))
     grp = torch.arange(groups, dtype=torch.int64, device=device)
-    c0 = rows[:, None].expand(n_pad, groups)
-    c1 = grp[None, :].expand(n_pad, groups)
-    zero = torch.zeros((n_pad, groups), dtype=torch.int64, device=device)
-    words = philox4x32_10(c0, c1, zero, zero,
-                          (int(seed) & _MASK32) ^ SIGN_SALT, SIGN_STREAM)
     shifts = torch.arange(32, dtype=torch.int64, device=device)
-    bits = torch.stack(
-        [((w[:, :, None] >> shifts) & 1).to(torch.int8) for w in words],
-        dim=2,
-    )                                          # (n_pad, groups, 4, 32)
-    X = (bits * 2 - 1).reshape(n_pad, p_pad)
-    X[n:] = 0
-    X[:, p:] = 0
-    return X, X.sum(dim=0, dtype=torch.int32)
+    X = torch.empty((n_pad, p_pad), dtype=torch.int8, device=device)
+    colsum = torch.zeros((p_pad,), dtype=torch.int32, device=device)
+    for r0 in range(0, n_pad, step):
+        rows = torch.arange(r0, min(r0 + step, n_pad), dtype=torch.int64,
+                            device=device)
+        c0 = rows[:, None].expand(len(rows), groups)
+        c1 = grp[None, :].expand(len(rows), groups)
+        zero = torch.zeros_like(c0)
+        words = philox4x32_10(c0, c1, zero, zero,
+                              (int(seed) & _MASK32) ^ SIGN_SALT, SIGN_STREAM)
+        bits = torch.stack(
+            [((w[:, :, None] >> shifts) & 1).to(torch.int8) for w in words],
+            dim=2,
+        )                                      # (rows, groups, 4, 32)
+        Xb = X[r0:r0 + len(rows)]
+        Xb.copy_((bits * 2 - 1).reshape(len(rows), p_pad))
+        Xb[max(n - r0, 0):] = 0
+        Xb[:, p:] = 0
+        colsum += Xb.sum(dim=0, dtype=torch.int32)
+    return X, colsum
 
 
 def sign_field_sums(seed, n, p, n_pad, p_pad, device):

@@ -47,6 +47,8 @@ TILE = 128           # output tile of the kernel (rows == cols)
 KBLOCK_BYTES = 128   # contraction bytes per pipeline stage
 MIN_SPLIT_KBLOCKS = 4   # no contraction piece is shorter than this
 _INT32_MAX = 2 ** 31 - 1
+# float64 bytes of one column block of syrk_reference's exact int8 sum
+_REF_BYTES = 1 << 30
 # tile rows of a band of tile_order; None: chosen from the SM count
 # (chip_smoke.py sets it for its sweep)
 _BAND = None
@@ -174,13 +176,18 @@ def syrk_reference(X):
     """Plain PyTorch ``X X^T`` (f32) with the kernel's contract.
 
     int8 input is summed exactly (float64 products of int8 values are
-    exact far beyond the int32 range the kernel's guard allows) and then
-    rounded to f32 like the kernel's int32 -> f32 store.  bf16 input is
-    widened to f32 and multiplied in f32.
+    exact far beyond the int32 range the kernel's guard allows), over
+    column blocks of at most ``_REF_BYTES`` of float64, and then rounded
+    to f32 like the kernel's int32 -> f32 store.  bf16 input is widened
+    to f32 and multiplied in f32.
     """
     if X.dtype == torch.int8:
-        Xd = X.to(torch.float64)
-        return (Xd @ Xd.T).to(torch.float32)
+        cols = max(1, _REF_BYTES // (8 * X.shape[0]))
+        G = X.new_zeros((X.shape[0], X.shape[0]), dtype=torch.float64)
+        for c0 in range(0, X.shape[1], cols):
+            Xd = X[:, c0:c0 + cols].to(torch.float64)
+            G.addmm_(Xd, Xd.T)
+        return G.to(torch.float32)
     Xf = X.to(torch.float32)
     return Xf @ Xf.T
 
