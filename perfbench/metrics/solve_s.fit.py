@@ -1,0 +1,7 @@
+"""Mean host seconds of the fits' solve stage in the traced window (a
+harness span around its public calls, ending in a device synchronize)."""
+from perfbench.readers import span_mean
+
+
+def read(ctx):
+    return span_mean(ctx, 'solve')
