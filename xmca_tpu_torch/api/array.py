@@ -28,6 +28,12 @@ package on every device (its branch for ``jax.default_backend() ==
 'tpu'``); ``rule_n``'s docstring tables it.  Bootstrapping: the fast
 spectrum (``set_solver(spectrum='exact')`` picks the dense one) and
 rotation tolerance 1e-4 with the convergence-gated polar.
+
+Under a profiler (:mod:`xmca_tpu_torch.utils.trace`) the constructor's
+ingest (``ingest`` a field: ``ingest.copy``, ``ingest.scan``,
+``ingest.moments``), ``normalize``, ``solve``, ``rotate`` (its
+``iterations``), ``rule_n`` and ``bootstrapping`` record spans, and every
+blocking read or copy is a ``sync`` site.
 """
 import cmath
 import os
@@ -44,13 +50,14 @@ from xmca_tpu_torch.core import solver as _solver
 from xmca_tpu_torch.core.rotation import promax as _promax
 from xmca_tpu_torch.parallel import mesh as _mesh
 from xmca_tpu_torch.stats import significance as _sig
+from xmca_tpu_torch.utils import trace
 from xmca_tpu_torch.utils.device import resolve_device
 
 _HILBERT_MATMUL_MAX_N = 8192
 
 
-def _np(x):
-    return x.detach().cpu().resolve_conj().numpy()
+def _np(x, site='result'):
+    return trace.to_host(x.detach(), site).resolve_conj().numpy()
 
 
 def _torch_dtype(dtype):
@@ -69,10 +76,10 @@ def _torch_dtype(dtype):
     return out
 
 
-def _host_to(x, like, real=False):
+def _host_to(x, like, real=False, site='host.copy'):
     """Host array ``x`` as a tensor on ``like``'s device, in ``like``'s
     dtype (its real dtype when ``real``)."""
-    t = torch.as_tensor(np.ascontiguousarray(x), device=like.device)
+    t = trace.to_device(np.ascontiguousarray(x), like.device, site)
     return t.to(like.real.dtype if real else like.dtype)
 
 
@@ -244,30 +251,41 @@ class MCA:
         device and come back as small host vectors."""
         packed = {}
         for k, f in data.items():
-            d = torch.as_tensor(f.reshape(f.shape[0], -1),
-                                device=self._device)
+            with trace.span('ingest', field=k):
+                packed[k] = self._ingest_field(k, f)
+        return packed
+
+    def _ingest_field(self, k, f):
+        """Field ``k``'s upload, its NaN scan (NaN columns dropped) and
+        its moments: the centered packed field on the device."""
+        with trace.span('ingest.copy', bytes=f.nbytes):
+            d = trace.to_device(f.reshape(f.shape[0], -1), self._device,
+                                'ingest.copy')
             if not (d.is_floating_point() or d.is_complex()):
                 # integer and bool fields solve in float32, as chunks do
                 # (core.streaming.stream_dtype) and as jnp.mean promotes
                 # them on the JAX package's device
                 d = d.to(torch.float32)
+        with trace.span('ingest.scan'):
             nan = torch.isnan(d)
-            if bool(nan.all(dim=1).any()):
+            if trace.to_host(nan.all(dim=1).any(), 'ingest.nan', bool):
                 raise ValueError(
                     'One or more fields contain NaN time steps. '
                     'Please remove these prior to analysis.'
                 )
-            nan_cols = nan.any(dim=0).cpu().numpy()
+            nan_cols = trace.to_host(nan.any(dim=0), 'ingest.nan').numpy()
             self._no_nan_index[k] = ~nan_cols
             if nan_cols.any():
-                keep = torch.as_tensor(np.nonzero(~nan_cols)[0],
-                                       device=self._device)
+                keep = trace.to_device(np.nonzero(~nan_cols)[0],
+                                       self._device, 'ingest.keep')
                 d = d[:, keep]
+        with trace.span('ingest.moments'):
             mean = d.mean(dim=0)
-            self._field_means[k] = mean.cpu().numpy()
-            self._field_stds[k] = d.std(dim=0, correction=0).cpu().numpy()
-            packed[k] = d - mean
-        return packed
+            self._field_means[k] = trace.to_host(
+                mean, 'ingest.moments').numpy()
+            self._field_stds[k] = trace.to_host(
+                d.std(dim=0, correction=0), 'ingest.moments').numpy()
+            return d - mean
 
     def _get_method_id(self):
         return 'mca' if self._analysis['is_bivariate'] else 'pca'
@@ -524,9 +542,10 @@ class MCA:
                 self._nan_guard_dirty = True
             w = self._local(k, w)
             f = self._fields[k]
-            self._fields[k] = f * torch.as_tensor(w, device=self._device,
-                                                  dtype=f.dtype)
+            self._fields[k] = f * trace.to_device(
+                w, self._device, 'weights.copy', dtype=f.dtype)
 
+    @trace.spanned('normalize')
     def normalize(self):
         """Divide each time series by its standard deviation (on a
         chunk-backed model, by its chunk's std in every streamed pass)."""
@@ -537,8 +556,8 @@ class MCA:
                 # zero-std columns divide to NaN, as in the reference
                 self._nan_guard_dirty = True
             self._fields[k] = _pre.standardize(
-                f, torch.as_tensor(self._local(k, stds), device=self._device,
-                                   dtype=f.dtype))
+                f, trace.to_device(self._local(k, stds), self._device,
+                                   'normalize.stds', dtype=f.dtype))
         self._analysis['is_normalized'] = True
         self._analysis['is_coslat_corrected'] = False
         self._analysis['method'] = self._get_method_id()
@@ -680,6 +699,7 @@ class MCA:
         gen.manual_seed(self._solver_seed)
         return _fast.start_block(m, k, dtype, gen)
 
+    @trace.spanned('solve')
     def solve(self, complexify=False, extend=False, period=1):
         """Perform the MCA / PCA, complexified (Hilbert) when
         ``complexify=True``; with ``extend`` ('exp' or 'theta') each
@@ -771,14 +791,16 @@ class MCA:
                 _fast.fast_solve_truncated_totals_analytic(
                     Xl.real, Xr.real, H, omega, n_modes=k,
                     n_iter=self._subspace_iters)
-            totals = (float(total_cov), float(total_sq))
+            totals = (trace.to_host(total_cov, 'solve.totals', float),
+                      trace.to_host(total_sq, 'solve.totals', float))
         else:
             omega = self._start_block(n_obs, k, Xl.dtype)
             s, Vl, Vr, total_cov, total_sq = \
                 _fast.fast_solve_truncated_totals(
                     Xl, Xr, omega, n_modes=k, n_iter=self._subspace_iters)
-            totals = (float(total_cov), float(total_sq))
-        return _np(s), [Vl, Vr][:len(fields)], totals
+            totals = (trace.to_host(total_cov, 'solve.totals', float),
+                      trace.to_host(total_sq, 'solve.totals', float))
+        return _np(s, 'solve.svals'), [Vl, Vr][:len(fields)], totals
 
     def _solve_streamed(self, complexify, extend, period):
         """The out-of-core solve of a chunk-backed model: each field
@@ -835,6 +857,7 @@ class MCA:
         self._correlation_matrix = np.eye(len(svals))
 
     # --------------------------------------------------------------- rotate
+    @trace.spanned('rotate')
     def rotate(self, n_rot, power=1, tol=1e-8):
         """Varimax (``power=1``) / Promax rotation of the leading
         ``n_rot`` modes; raises if the fixed point does not converge.
@@ -859,7 +882,8 @@ class MCA:
         cols = [Vl[:, :n_rot]]
         if self._analysis['is_bivariate']:
             cols.append(self._V['right'][:, :n_rot])
-        L = torch.cat(cols, dim=0) * _host_to(sqrt_s, Vl, real=True)[None, :]
+        L = torch.cat(cols, dim=0) * _host_to(sqrt_s, Vl, real=True,
+                                              site='rotate.weights')[None, :]
         with self._space():
             L_rot, R, Phi, converged, n_iter = _promax(
                 L, power=power, max_iter=1000, tol=tol)
@@ -871,6 +895,7 @@ class MCA:
                 both = _mesh.col_norm(L_rot)
                 norm = {'left': both, 'right': both}
         self._rotate_iterations = n_iter
+        trace.annotate(iterations=n_iter)
         if not converged:
             raise RuntimeError(
                 'Rotation process did not converge. Try decreasing the '
@@ -1421,6 +1446,7 @@ class MCA:
                 'rademacher8' if generated else 'normal16'),
         )
 
+    @trace.spanned('rule_n')
     def rule_n(self, n_runs, n_modes=None, seed=None,
                disable_progress=False):
         """Rule N (Overland & Preisendorfer 1982): the spectra of
@@ -1494,6 +1520,7 @@ class MCA:
             self._analysis['is_complex'],
         )
 
+    @trace.spanned('bootstrapping')
     def bootstrapping(self, n_runs, n_modes=20, axis=0, on_left=True,
                       on_right=False, block_size=1, replace=True,
                       strategy='standard', disable_progress=False,

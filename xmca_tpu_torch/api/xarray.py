@@ -21,6 +21,7 @@ import torch
 from xmca_tpu_torch.compat import xr, open_dataarray
 from xmca_tpu_torch.api.array import MCA, _host_to
 from xmca_tpu_torch.parallel import mesh as _mesh
+from xmca_tpu_torch.utils import trace
 from xmca_tpu_torch.utils.text import secure_str
 
 # the labeled array type xMCA takes: xarray's when it is installed, else
@@ -210,6 +211,7 @@ class xMCA(MCA):
             else:
                 MCA.apply_weights(self, **{k: cols})
 
+    @trace.spanned('apply_coslat')
     def apply_coslat(self):
         """Apply sqrt(cos(latitude)) area weighting."""
         weights = {}

@@ -25,6 +25,11 @@ JAX package's kernels do.
 
 Random start blocks are arguments (``omega``): the caller draws them from
 an explicit ``torch.Generator``, and tests inject the JAX package's own.
+
+Under a profiler the stages record spans (:mod:`xmca_tpu_torch.utils.
+trace`): ``draw`` (a +-1 field and its sums), ``gram`` (the Grams and what
+is formed from them up to the reduced kernel), ``subspace``
+(:func:`subspace_svd`) and ``project`` (the spatial vectors).
 """
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from xmca_tpu_torch.core.linalg import (ns_polar_iterate_scaled,
                                         ns_polar_schedule)
 from xmca_tpu_torch.core.preprocess import _analytic_weights
 from xmca_tpu_torch.parallel import mesh as _mesh
+from xmca_tpu_torch.utils import trace
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -100,7 +106,8 @@ def hilbert_operator(n, dtype=torch.float64, device='cpu'):
     The only n x n buffer is H itself (0.85 GB in f32 at n = 14610).
     """
     n = int(n)
-    h = torch.as_tensor(_analytic_weights(n, np.float64), device=device)
+    h = trace.to_device(_analytic_weights(n, np.float64), device,
+                        'hilbert.weights')
     a_rev = torch.fft.ifft(h).imag.to(dtype).flip(0)
     u = torch.cat([a_rev, a_rev])
     return u.as_strided((n, n), (1, 1)).flip(0)
@@ -132,6 +139,7 @@ def analytic_temporal_gram(X, H, jitter_rel=1e-6):
                    input_eps=_eps(X.dtype))
 
 
+@trace.spanned('gram')
 def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
     """Chol-reduced kernel of the complexified fields, ``(M, La, Lb)``."""
     dof = Xl.shape[0] - 1
@@ -148,6 +156,7 @@ def temporal_gram(X, jitter_rel=1e-6):
                    input_eps=_eps(X.dtype))
 
 
+@trace.spanned('gram')
 def reduced_kernel(Xl, Xr, jitter_rel=1e-6):
     """n x n matrix with the singular values of ``Xl^H Xr / dof``."""
     dof = Xl.shape[0] - 1
@@ -186,6 +195,7 @@ def start_block(m, k, dtype, generator):
     return omega.to(dtype)
 
 
+@trace.spanned('subspace')
 def subspace_svd(M, omega, k, n_iter=8, orth='qr'):
     """Leading-k singular triplets of square ``M`` by subspace iteration
     from the start block ``omega (m, kk)``; returns ``(U, s, V)``."""
@@ -252,6 +262,7 @@ def combine_analytic_projection(P):
     return torch.complex(P[:, :k], P[:, k:])
 
 
+@trace.spanned('project')
 def _analytic_spatial_vectors(X, H, T):
     """``V = Z^H T`` for ``Z = (I + iH) X`` without materializing Z."""
     return combine_analytic_projection(
@@ -303,8 +314,8 @@ def _rotated_variance(Vl, Vr, s, power, tol, polar_method, space=None):
     else:
         variance = norm_left * _mesh.col_norm(L_rot[n_left:])
     variance = torch.sort(variance, descending=True).values
-    return (variance, converged and bool(torch.isfinite(variance).all()),
-            n_it)
+    return (variance, converged and trace.to_host(
+        torch.isfinite(variance).all(), 'variance.finite', bool), n_it)
 
 
 def fast_rotated_variance_analytic(Xl, Xr, H, omega, n_rot, power=1,
@@ -387,6 +398,7 @@ def _pm1_blocks(X, stop):
         yield c0, X[:, c0:c0 + cols].to(torch.float32)
 
 
+@trace.spanned('project')
 def _pm1_project(X, S, p):
     """``X^T S`` (p, m) f32 of a padded +-1 int8 field ``X`` (n_pad,
     p_pad) and f32 weights ``S`` (n_obs, m), the field cast to f32 one
@@ -427,14 +439,16 @@ def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, complexify,
 
     bivariate = len(n_vars) == 2
     dof = n_obs - 1
-    La = _cholesky(grams[0])
-    Lb = _cholesky(grams[1]) if bivariate else La
-    M = (La.mH @ Lb) / dof
+    with trace.span('gram'):
+        La = _cholesky(grams[0])
+        Lb = _cholesky(grams[1]) if bivariate else La
+        M = (La.mH @ Lb) / dof
 
     if not rotated:
         _, s, _ = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
         return (s, nuclear_norm_surrogate(M),
-                bool(torch.isfinite(s).all()), 0)
+                trace.to_host(torch.isfinite(s).all(), 'variance.finite',
+                              bool), 0)
 
     U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
 
@@ -495,19 +509,23 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
     grams, mus, Xs = [], [], []
     for i, p in enumerate(n_vars):
         n_pad, p_pad = pad_to(n_obs, p)
-        if fields is None:
-            X, colsum = sign_field_sums((2 * int(seed) + i) & 0xFFFFFFFF,
-                                        n_obs, p, n_pad, p_pad, device)
-        else:
-            X = fields[i]
-            if tuple(X.shape) != (n_pad, p_pad) or X.dtype != torch.int8:
-                raise ValueError('injected field {} must be int8 {}'
-                                 .format(i, (n_pad, p_pad)))
-            colsum = X.sum(dim=0, dtype=torch.int32)
-        G = syrk(X, pm1=True)[:n_obs, :n_obs]
-        w = torch.sum(G, dim=1) / n_obs
-        Gc = G - w[:, None] - w[None, :] + torch.sum(w) / n_obs
-        grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
+        with trace.span('draw'):
+            if fields is None:
+                X, colsum = sign_field_sums(
+                    (2 * int(seed) + i) & 0xFFFFFFFF, n_obs, p, n_pad,
+                    p_pad, device)
+            else:
+                X = fields[i]
+                if (tuple(X.shape) != (n_pad, p_pad)
+                        or X.dtype != torch.int8):
+                    raise ValueError('injected field {} must be int8 {}'
+                                     .format(i, (n_pad, p_pad)))
+                colsum = X.sum(dim=0, dtype=torch.int32)
+        with trace.span('gram'):
+            G = syrk(X, pm1=True)[:n_obs, :n_obs]
+            w = torch.sum(G, dim=1) / n_obs
+            Gc = G - w[:, None] - w[None, :] + torch.sum(w) / n_obs
+            grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
         mus.append(colsum[:p].to(torch.float32) / n_obs)
         Xs.append(X)
 

@@ -13,6 +13,7 @@ slow dense SVD) and ``randomized_decomposition`` (no caller).
 import torch
 
 from xmca_tpu_torch.parallel import mesh as _mesh
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['safe_reciprocal', 'field_decomposition', 'kernel_svd',
            'pinv_hermitian_diag', 'ns_polar_schedule', 'ns_polar_apply',
@@ -176,12 +177,16 @@ def unitary_polar_factor(A, method='svd'):
     well-conditioned noise criteria).  ``'ns-gated'``: iterate on the
     orthogonality defect ``||W^H W - I||_F`` until it drops below
     ``10 k eps`` or 80 steps; the defect is read on the host once per
-    step, like the JAX ``while_loop``'s condition.
+    step, like the JAX ``while_loop``'s condition (the ``sync`` site
+    'polar.defect').  The Newton-Schulz steps taken are added to the open
+    span's ``polar_steps`` (:mod:`xmca_tpu_torch.utils.trace`).
     """
     if method.startswith('ns') and method[2:].isdigit():
+        trace.add('polar_steps', int(method[2:]))
         W = ns_polar_iterate(A, int(method[2:]))
         return W, _trace_real(W, A)
     if method == 'ns':
+        trace.add('polar_steps', 30)
         W = ns_polar_iterate(A, 30)
         return W, _trace_real(W, A)
     if method == 'ns-gated':
@@ -192,9 +197,11 @@ def unitary_polar_factor(A, method='svd'):
         i, defect = 0, float('inf')
         while i < 80 and defect > defect_tol:
             H = W.mH @ W
-            defect = float(torch.linalg.norm(H - eye))
+            defect = trace.to_host(torch.linalg.norm(H - eye),
+                                   'polar.defect', float)
             W = 1.5 * W - 0.5 * (W @ H)
             i += 1
+        trace.add('polar_steps', i)
         return W, _trace_real(W, A)
     if method == 'svd':
         u, s, vh = torch.linalg.svd(A)

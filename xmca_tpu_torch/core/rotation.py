@@ -2,7 +2,10 @@
 
 Counterpart of ``xmca_tpu/core/rotation.py``.  The JAX ``lax.while_loop``
 becomes a Python loop with the same condition and the same tolerance
-clamp; the convergence scalar is read on the host once per iteration.
+clamp; the convergence scalar is read on the host once per iteration
+(the ``sync`` site 'varimax.criterion' of :mod:`xmca_tpu_torch.utils.
+trace`; a profiled ``varimax`` span holds its ``iterations`` and the
+polar's ``polar_steps``).
 Non-convergence is a returned flag, not an exception, so Monte-Carlo
 ensembles can drop the run.  Inside a
 :func:`~xmca_tpu_torch.parallel.mesh.space_context` the loading rows are
@@ -15,6 +18,7 @@ import torch
 from xmca_tpu_torch.core.linalg import (pinv_hermitian_diag,
                                         unitary_polar_factor)
 from xmca_tpu_torch.parallel import mesh as _mesh
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['varimax', 'promax', 'ensemble_space']
 
@@ -36,6 +40,7 @@ def ensemble_space(n, p, itemsize):
             else 'data')
 
 
+@trace.spanned('varimax', iterations=0, polar_steps=0)
 def varimax(A, gamma=1.0, max_iter=1000, tol=1e-8, polar_method=None,
             space=None):
     """Orthogonal Varimax rotation with Kaiser normalization.
@@ -90,8 +95,10 @@ def varimax(A, gamma=1.0, max_iter=1000, tol=1e-8, polar_method=None,
     i, R, d, d_old = 0, torch.eye(p, dtype=dtype, device=A.device), 0.0, 0.0
     while i < max_iter and (i == 0 or rel_change(d, d_old) >= tol):
         R, d_new = unitary_polar_factor(criterion_of(R), method=polar_method)
-        i, d, d_old = i + 1, float(d_new), d
+        d_old, d = d, trace.to_host(d_new, 'varimax.criterion', float)
+        i += 1
     converged = rel_change(d, d_old) < tol
+    trace.annotate(iterations=i)
     return A @ R, R, converged, i
 
 

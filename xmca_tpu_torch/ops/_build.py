@@ -14,11 +14,11 @@ Every C entry point launches on the stream it is given and returns
 exception.  There is no fallback: a kernel that does not build or does
 not launch raises.
 
-Wrappers count their launches in :data:`LAUNCHES` (name -> count), one
-per kernel launch and nowhere else, so a run can show which kernels its
-path went through.
+Wrappers count their launches in the ``launches`` counter of
+:mod:`xmca_tpu_torch.utils.trace` (name -> count), one per kernel launch
+and nowhere else, so a run can show which kernels its path went through;
+:func:`launch_counts` reads it.
 """
-import collections
 import ctypes
 import glob
 import os
@@ -33,8 +33,6 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # dlopen/dlsym: csrc/syrk.cu takes cuTensorMapEncodeTiled from libcuda
 LINK_FLAGS = ['-ldl']
-
-LAUNCHES = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -148,8 +146,10 @@ def stream_of(tensor):
 
 
 def reset_launch_counts():
-    LAUNCHES.clear()
+    from xmca_tpu_torch.utils import trace
+    trace.reset_counters('launches')
 
 
 def launch_counts():
-    return dict(LAUNCHES)
+    from xmca_tpu_torch.utils import trace
+    return trace.counts('launches')

@@ -46,6 +46,7 @@ from xmca_tpu_torch.ops import _build
 from xmca_tpu_torch.ops.syrk import (COL_PAD, ROW_PAD, TILE, _sm_count,
                                      data_ptr, order_table, schedule,
                                      wave_counter, workspace_tiles)
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['sign_field_sums', 'sign_field_sums_reference', 'philox4x32_10',
            'SIGN_SALT', 'SIGN_STREAM', 'GEN_STREAM', 'GEN_DISTS',
@@ -165,7 +166,7 @@ def sign_field_sums(seed, n, p, n_pad, p_pad, device):
         X.data_ptr(), colsum.data_ptr(), n, p, n_pad, p_pad,
         int(seed) & _MASK32, SIGN_STREAM, _build.stream_of(X))
     _build.check(err, 'sign_field_sums')
-    _build.LAUNCHES['sign_field_sums'] += 1
+    trace.count('launches', 'sign_field_sums')
     return X, colsum
 
 
@@ -259,7 +260,7 @@ def surrogate_field(seed, n, p, dist, device):
                                    GEN_DISTS.index(dist),
                                    _build.stream_of(X))
     _build.check(err, 'surrogate_field')
-    _build.LAUNCHES['surrogate_field'] += 1
+    trace.count('launches', 'surrogate_field')
     return X
 
 
@@ -369,7 +370,7 @@ def surrogate_gram(seed, n, p, dist, device, chunk_cols=CHUNK_COLS):
         GEN_DISTS.index(dist), (ctypes.c_int * len(rows))(*rows), len(plan),
         _build.stream_of(G))
     _build.check(err, 'surrogate_gram')
-    _build.LAUNCHES['surrogate_gram'] += 1
+    trace.count('launches', 'surrogate_gram')
     return _raw_gram_terms(G[:n, :n], colsum, n)
 
 
@@ -413,5 +414,5 @@ def surrogate_project(seed, S, n, p, dist, device):
                                      GEN_DISTS.index(dist),
                                      _build.stream_of(P))
     _build.check(err, 'surrogate_project')
-    _build.LAUNCHES['surrogate_project'] += 1
+    trace.count('launches', 'surrogate_project')
     return P

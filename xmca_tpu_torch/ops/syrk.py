@@ -36,6 +36,7 @@ import math
 import torch
 
 from xmca_tpu_torch.ops import _build
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['syrk', 'syrk_reference', 'pad_to', 'schedule', 'work_units',
            'workspace_tiles', 'tile_order', 'wave_panels', 'ROW_PAD',
@@ -250,5 +251,5 @@ def syrk(X, pm1=False):
                         s.dp_tiles, s.split_tiles, s.splits,
                         _build.stream_of(X))
     _build.check(err, 'syrk')
-    _build.LAUNCHES['syrk'] += 1
+    trace.count('launches', 'syrk')
     return G

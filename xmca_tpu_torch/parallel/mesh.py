@@ -23,22 +23,24 @@ Every collective is an ``all_reduce`` (a sum, a max or a min), which
 NCCL and gloo both run on CUDA tensors, so a mesh of several ranks can
 share one card over gloo.  A gather is zeros, plus the rank's own block,
 plus a sum (exact: x + 0 == x).  An axis of size 1 communicates nothing.
-:data:`COLLECTIVES` counts every collective and its bytes, as
-``ops._build.LAUNCHES`` counts kernel launches.
+Every collective is counted, with its bytes, in the ``collectives`` and
+``collective_bytes`` counters of :mod:`xmca_tpu_torch.utils.trace`, as
+kernel launches are; :func:`collective_counts` reads them.
 
 The space contractions read the mesh from :func:`space_context`, which
 the model's methods enter around work on sharded data; outside it (and
 always for Rule-N, whose surrogate fields are whole on every rank) they
 are the plain single-device products.
 """
-import collections
 import contextlib
 import os
 
 import torch
 import torch.distributed as dist
 
-__all__ = ['ENSEMBLE_AXIS', 'SPACE_AXIS', 'COLLECTIVES', 'make_mesh',
+from xmca_tpu_torch.utils import trace
+
+__all__ = ['ENSEMBLE_AXIS', 'SPACE_AXIS', 'make_mesh',
            'distribute_array', 'sharded_solve', 'axis_size', 'axis_rank',
            'space_context', 'reset_collective_counts',
            'collective_counts']
@@ -46,20 +48,22 @@ __all__ = ['ENSEMBLE_AXIS', 'SPACE_AXIS', 'COLLECTIVES', 'make_mesh',
 ENSEMBLE_AXIS = 'ensemble'
 SPACE_AXIS = 'space'
 
-# 'all_reduce' -> collectives run, 'bytes' -> bytes they reduced
-COLLECTIVES = collections.Counter()
-
 _OPS = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX,
         'min': dist.ReduceOp.MIN}
 _ACTIVE = {'mesh': None}
 
 
 def reset_collective_counts():
-    COLLECTIVES.clear()
+    trace.reset_counters('collectives', 'collective_bytes')
 
 
 def collective_counts():
-    return dict(COLLECTIVES)
+    """``{'all_reduce': collectives run, 'bytes': bytes they reduced}``,
+    or ``{}`` before the first."""
+    out = trace.counts('collectives')
+    if out:
+        out['bytes'] = sum(trace.counts('collective_bytes').values())
+    return out
 
 
 def make_mesh(ensemble=1, space=1, devices=None, device_type='cuda'):
@@ -141,8 +145,8 @@ def all_reduce(x, mesh, axis, op='sum'):
         return x
     x = x.resolve_conj().contiguous()
     dist.all_reduce(x, op=_OPS[op], group=mesh.get_group(axis))
-    COLLECTIVES['all_reduce'] += 1
-    COLLECTIVES['bytes'] += x.numel() * x.element_size()
+    trace.count('collectives', 'all_reduce')
+    trace.count('collective_bytes', 'all_reduce', x.numel() * x.element_size())
     return x
 
 
@@ -169,8 +173,8 @@ def barrier(mesh):
         return
     x = torch.zeros(1, device=mesh_device(mesh))
     dist.all_reduce(x)
-    COLLECTIVES['all_reduce'] += 1
-    COLLECTIVES['bytes'] += x.element_size()
+    trace.count('collectives', 'all_reduce')
+    trace.count('collective_bytes', 'all_reduce', x.element_size())
 
 
 def is_writer(mesh):

@@ -39,6 +39,12 @@ whole on every rank; a bootstrap resamples the model's fields, which a
 'space' axis shards by columns: a time resample takes each rank's rows
 of its own columns, a column resample each rank's draws on its own
 columns (:func:`bootstrap_spectra`).
+
+Under a profiler (:mod:`xmca_tpu_torch.utils.trace`) each run of
+:func:`rule_n_generated` and :func:`bootstrap_spectra` is a ``run`` span
+(its ``seed``) holding ``start`` (the start block drawn on the host and
+copied), for a bootstrap ``resample``, and the solve's stages; the
+runs' results come to the host in ``collect``.
 """
 import numpy as np
 import torch
@@ -47,6 +53,7 @@ from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core.preprocess import complexify as _complexify
 from xmca_tpu_torch.core.solver import solve_rotated_variance, solve_svals
 from xmca_tpu_torch.parallel import mesh as _mesh
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['run_seeds', 'rule_n_spectra', 'rule_n_generated',
            'rule_north_uncertainty', 'bootstrap_spectra']
@@ -70,10 +77,18 @@ def run_seeds(seed, n_runs):
 def _start_block(s, k, n_obs, complexify, device):
     """Run ``s``'s subspace start block, drawn on the CPU from a generator
     seeded with ``s`` and copied to ``device``."""
-    gen = torch.Generator().manual_seed(s)
-    return _fast.start_block(
-        n_obs, k, torch.complex64 if complexify else torch.float32,
-        gen).to(device)
+    return _drawn_start(torch.Generator().manual_seed(s), n_obs, k,
+                        torch.complex64 if complexify else torch.float32,
+                        device)
+
+
+def _drawn_start(gen, n_obs, k, dtype, device):
+    """:func:`core.fastpath.start_block` drawn on the CPU from ``gen`` and
+    copied to ``device``."""
+    with trace.span('start') as span:
+        omega = _fast.start_block(n_obs, k, dtype, gen)
+        span.set(bytes=omega.numel() * omega.element_size())
+        return trace.to_device(omega, device, 'start.copy')
 
 
 def _run_row(var, total, conv, n_iter):
@@ -111,9 +126,13 @@ def _collect(runs):
     dropped from the first two; ``n_iter`` holds every run's rotation
     iteration count, or is None where the solve does not report it."""
     runs = list(runs)
-    keep = np.asarray([bool(r[2]) for r in runs], dtype=bool)
-    spectra = torch.stack([r[0] for r in runs]).cpu().numpy()
-    totals = torch.stack([torch.as_tensor(r[1]) for r in runs]).cpu().numpy()
+    with trace.span('collect'):
+        keep = np.asarray([bool(r[2]) for r in runs], dtype=bool)
+        spectra = trace.to_host(torch.stack([r[0] for r in runs]),
+                                'collect').numpy()
+        totals = trace.to_host(torch.stack([torch.as_tensor(r[1])
+                                            for r in runs]),
+                               'collect').numpy()
     iters = [r[3] for r in runs]
     iters = None if any(i is None for i in iters) else np.asarray(iters)
     return spectra[keep], totals[keep], iters
@@ -208,21 +227,23 @@ def rule_n_generated(n_obs, n_vars, n_runs, *, complexify, rotated, n_rot,
     k = n_rot if rotated else n_modes_fast
 
     def one_run(s):
-        omega = _start_block(s, k, n_obs, complexify, device)
-        if dist in _PM1_INT8:
-            return _fast.fast_surrogate_variance_tri(
-                s, omega, n_obs, n_vars, H=H, complexify=complexify,
-                rotated=rotated, n_rot=k, power=power, tol=tol,
-                n_iter=subspace_iters, polar_method=polar_method,
-                grade=grade)
-        fields = [surrogate_field((2 * s + i) & 0xFFFFFFFF, n_obs, p, dist,
-                                  device) for i, p in enumerate(n_vars)]
-        var, total, conv = _surrogate_variance(
-            fields, complexify, rotated, n_rot, power, tol, 'gram',
-            spectrum='fast', n_modes_fast=n_modes_fast,
-            subspace_iters=subspace_iters, omega=omega, hilbert_H=H,
-            polar_method=polar_method)
-        return var, total, conv, None
+        with trace.span('run', seed=s):
+            omega = _start_block(s, k, n_obs, complexify, device)
+            if dist in _PM1_INT8:
+                return _fast.fast_surrogate_variance_tri(
+                    s, omega, n_obs, n_vars, H=H, complexify=complexify,
+                    rotated=rotated, n_rot=k, power=power, tol=tol,
+                    n_iter=subspace_iters, polar_method=polar_method,
+                    grade=grade)
+            fields = [surrogate_field((2 * s + i) & 0xFFFFFFFF, n_obs, p,
+                                      dist, device)
+                      for i, p in enumerate(n_vars)]
+            var, total, conv = _surrogate_variance(
+                fields, complexify, rotated, n_rot, power, tol, 'gram',
+                spectrum='fast', n_modes_fast=n_modes_fast,
+                subspace_iters=subspace_iters, omega=omega, hilbert_H=H,
+                polar_method=polar_method)
+            return var, total, conv, None
 
     with _mesh.space_context(None):
         return _collect_ensemble(one_run, run_seeds(seed, n_runs), mesh,
@@ -402,14 +423,19 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     if pool:
         _check(n_obs if axis == 0 else sum(widths))
 
+    def indices(gen, n_total):
+        idx = _block_indices(gen, n_total, block_size, replace)
+        trace.annotate(bytes=idx.numel() * idx.element_size())
+        return trace.to_device(idx, device, 'resample.copy')
+
+    @trace.spanned('resample')
     def resample(gen, fs):
         if not pool:
             return fs
         if axis == 0:
-            idx = _block_indices(gen, n_obs, block_size, replace).to(device)
+            idx = indices(gen, n_obs)
             return [f[idx] if i in pool else f for i, f in enumerate(fs)]
-        idx = _block_indices(gen, sum(widths), block_size,
-                             replace).to(device)
+        idx = indices(gen, sum(widths))
         src = (fs[pool[0]] if len(pool) == 1
                else torch.cat([fs[i] for i in pool], dim=1))
         draws = (idx[:widths[0]], idx[widths[0]:]) if len(pool) == 2 else (
@@ -419,7 +445,9 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
             out[i] = src[:, local(d)]
         return out
 
+    @trace.spanned('run')
     def one_run(s):
+        trace.annotate(seed=s)
         gen = torch.Generator().manual_seed(s)
         fs = resample(gen, list(fields))
         cplx = complexify
@@ -430,7 +458,7 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
         omega = None
         if spectrum == 'fast':
             k = n_rot if rotated else n_out_modes
-            omega = _fast.start_block(n_obs, k, real, gen).to(device)
+            omega = _drawn_start(gen, n_obs, k, real, device)
         var, _, conv = _surrogate_variance(
             fs, cplx, rotated, n_rot, power, tol, method,
             spectrum=spectrum, n_modes_fast=n_out_modes,
@@ -438,12 +466,13 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
             # resamples of REAL data can have a large mode-variance
             # spread: the convergence-gated polar, as in the JAX package
             polar_method='ns-gated')
+        flag = torch.tensor([float(bool(conv))], dtype=torch.float64)
         return torch.cat([var[:n_out_modes].to(torch.float64),
-                          torch.tensor([float(bool(conv))],
-                                       dtype=torch.float64,
-                                       device=var.device)])
+                          trace.to_device(flag, var.device, 'run.converged')])
 
     rows = torch.stack(list(_mesh.ensemble_map(
         lambda ss: [one_run(s) for s in ss], run_seeds(seed, n_runs), mesh,
-        ensemble_axis))).cpu().numpy()
+        ensemble_axis)))
+    with trace.span('collect'):
+        rows = trace.to_host(rows, 'collect').numpy()
     return rows[:, :-1], rows[:, -1] > 0.5
