@@ -2564,14 +2564,13 @@ def _wide_axis0_reference(torch, grams, p, H, n_iter):
     from xmca_tpu_torch.core import fastpath as fp
     from xmca_tpu_torch.core.streaming import _fold_jitter
     from xmca_tpu_torch.stats.significance import _block_indices, run_seeds
-    from xmca_tpu_torch.stats.streaming_boot import _center_gram
     eps = fp._eps(torch.float32)
     svals, kappa = [], []
     for s in run_seeds(SEED, N_BOOT):
         gen = torch.Generator().manual_seed(s)
         idx = _block_indices(gen, N_OBS, BOOT_BLOCK, True).cuda()
         omega = fp.start_block(N_OBS, N_ROT, torch.float32, gen).cuda()
-        folded = [_fold_jitter(_center_gram(g), H, p, 1e-6, eps, True)
+        folded = [_fold_jitter(fp._center_gram(g), H, p, 1e-6, eps, True)
                   for g in (grams[0][idx][:, idx], grams[1])]
         La, Lb = (fp._cholesky(f) for f in folded)
         _, sv, _ = fp.subspace_svd(La.mH @ Lb / (N_OBS - 1), omega, k=N_ROT,

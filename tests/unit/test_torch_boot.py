@@ -211,3 +211,139 @@ def test_surrogate_variance(fields, spectrum, cplx, rotated, bivariate):
     np.testing.assert_allclose(var_t.numpy()[:K], np.asarray(var_j)[:K],
                                rtol=RTOL)
     np.testing.assert_allclose(float(tot_t), float(tot_j), rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# The bootstrap's two routes: the stored (Gram-space) route against the
+# data route, run for run, and which requests take which.
+# ---------------------------------------------------------------------------
+
+def _model_fields(fields, bivariate):
+    """Centered float64 fields of a model (the fixture's rows)."""
+    fs = list(fields) if bivariate else [fields[0]]
+    return [_t(f - f.mean(0)) for f in fs]
+
+
+def _boot(fs, monkeypatch=None, **kw):
+    """``bootstrap_spectra`` of ``fs`` (3 runs, K modes, seed 11) and the
+    runs it counted by route; with ``monkeypatch`` every run takes the
+    data route."""
+    if monkeypatch is not None:
+        monkeypatch.setattr(tsig, '_gram_route', lambda *a: False)
+    from xmca_tpu_torch.utils import trace
+    trace.reset_counters('gram_routes')
+    kw = dict(dict(n_rot=K, power=2, tol=1e-8, seed=11, spectrum='fast',
+                   subspace_iters=12), **kw)
+    spectra, conv = tsig.bootstrap_spectra(fs, 3, K, **kw)
+    return spectra, conv, trace.counts('gram_routes')
+
+
+_SIDES = [(True, False, True), (False, True, True), (True, True, True),
+          (False, False, True), (True, False, False), (False, False, False)]
+
+
+@pytest.mark.parametrize('block_size,replace', [(1, True), (1, False),
+                                                (8, True), (8, False)])
+@pytest.mark.parametrize('rotated', [False, True])
+@pytest.mark.parametrize('cplx', [False, True])
+@pytest.mark.parametrize('on_left,on_right,bivariate', _SIDES)
+def test_stored_route_matches_data_route(fields, monkeypatch, on_left,
+                                         on_right, bivariate, cplx, rotated,
+                                         block_size, replace):
+    """A time resample solved from the fields' Grams (``C G[idx][:, idx]
+    C``, the back-projection ``X^T P^T C S``) equals the same resample
+    gathered and solved as data, run for run: one and two fields, each
+    allowed pair of resampled sides, real and complexified (the analytic
+    fold), unrotated and promax-rotated, blocks of 1 and 8 steps drawn
+    with and without replacement."""
+    fs = _model_fields(fields, bivariate)
+    kw = dict(on_left=on_left, on_right=on_right, block_size=block_size,
+              replace=replace, complexify=cplx, rotated=rotated,
+              hilbert_H=tfast.hilbert_operator(N) if cplx else None)
+    got, conv, routes = _boot(fs, **kw)
+    assert routes == {'stored': 3}
+    want, conv_d, routes_d = _boot(fs, monkeypatch, **kw)
+    assert routes_d == {'data': 3}
+    assert conv.all() and conv_d.all()
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+@pytest.mark.parametrize('case', ['extend', 'axis1', 'exact'])
+def test_data_route_serves_extension_columns_and_exact(fields, case):
+    """An extended complexified bootstrap (each resample's boundary
+    forecast changes), a column resample and the exact spectrum take the
+    data route in every run."""
+    fs = _model_fields(fields, True)
+    kw = {'extend': dict(complexify=True, extend='exp', period=1),
+          'axis1': dict(axis=1, block_size=10),
+          'exact': dict(spectrum='exact')}[case]
+    _, conv, routes = _boot(fs, rotated=True, **kw)
+    assert routes == {'data': 3} and conv.all()
+
+
+def test_iterative_api_bootstrap_takes_stored_route():
+    """``bootstrapping(strategy='iterative')`` of a complexified, rotated
+    in-memory model: every run of every round in Gram space."""
+    from xmca_tpu_torch.array import MCA
+    from xmca_tpu_torch.utils import trace
+    rng = np.random.default_rng(3)
+    t = np.arange(64)
+    modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 6)[None] / 64)
+    left, right = (modes @ rng.standard_normal((5, p))
+                   + rng.standard_normal((64, p)) for p in (90, 70))
+    m = MCA(left, right, device='cpu')
+    m.set_solver(truncate=6, seed=2)
+    m.solve(complexify=True)
+    m.rotate(4)
+    trace.reset_counters('gram_routes')
+    out = np.asarray(m.bootstrapping(2, n_modes=3, block_size=8,
+                                     strategy='iterative', seed=9))
+    assert trace.counts('gram_routes') == {'stored': 2 * 3}
+    assert np.isfinite(out).all() and (out != 0).any()
+
+
+@pytest.mark.parametrize('n_runs', [1, 3])
+def test_stored_route_products_over_the_data(fields, monkeypatch, n_runs):
+    """A rotated, complexified time-axis bootstrap of two fields makes
+    two Gram products a call and two back-projections a run over the
+    data, and no product or any other operation gives a tensor of data
+    size (n_obs x columns)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    fs = _model_fields(fields, True)
+    shapes = []
+    real_dot = tfast._data_dot
+
+    def counted(a, b):
+        shapes.append((tuple(a.shape), tuple(b.shape)))
+        return real_dot(a, b)
+
+    monkeypatch.setattr(tfast, '_data_dot', counted)
+    largest = [0]
+
+    def storages(tree):
+        return {x.untyped_storage().data_ptr(): x
+                for x in torch.utils._pytree.tree_leaves(tree)
+                if isinstance(x, torch.Tensor)}
+
+    class Sizes(TorchDispatchMode):
+        """The most elements of any new storage (views of an operation's
+        inputs, such as ``X.T``, allocate none)."""
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            given = storages((args, kwargs))
+            for ptr, o in storages(out).items():
+                if ptr not in given:
+                    largest[0] = max(largest[0], o.untyped_storage().nbytes()
+                                     // o.element_size())
+            return out
+
+    with Sizes():
+        tsig.bootstrap_spectra(
+            fs, n_runs, K, n_rot=K, rotated=True, complexify=True,
+            hilbert_H=tfast.hilbert_operator(N), block_size=8, seed=4,
+            spectrum='fast', subspace_iters=12)
+    grams = [s for s in shapes if s[1][1] == N]
+    assert len(grams) == 2
+    assert len(shapes) - len(grams) == 2 * n_runs
+    assert largest[0] < N * min(P_L, P_R)

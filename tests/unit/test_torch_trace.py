@@ -5,7 +5,9 @@ CPU.
   every counter still counts.
 * Under ``torch.profiler.profile`` a small rotated, complexified model's
   fit, ``rule_n(2)`` and ``bootstrapping(2)`` record the span tree: each
-  ``run``'s parent is its call, each stage's parent a ``run``.
+  ``run``'s parent is its call, each stage's parent a ``run``; the
+  bootstrap's Grams of the call sit outside its runs, and every ``gram``
+  span and the ``gram_routes`` counter name the stored route.
 * The host syncs of a call follow from its ``varimax`` spans'
   ``iterations`` and ``polar_steps``, and repeat exactly.
 * Every answer is bit-equal with the profiler on and off.
@@ -114,6 +116,8 @@ def test_without_a_profiler_nothing_is_recorded(monkeypatch):
     syncs = trace.counters()['host_syncs']
     assert syncs['ingest.copy'] == 2 and syncs['collect'] == 3
     assert syncs['start.copy'] == 2 * RUNS
+    # the bootstrap of a complexified model on the time axis: Gram space
+    assert trace.counters()['gram_routes'] == {'stored': RUNS}
     assert trace.counters()['h2d_bytes']['ingest.copy'] == 2 * 4 * N_OBS * (
         GRID[0] * GRID[1])
 
@@ -189,6 +193,12 @@ def test_ensemble_calls_record_runs_and_stages(model, call, stages):
         assert all(s['name'] in stages | {'sync'} for s in under[r['id']])
     collect = [s for s in spans if s['name'] == 'collect']
     assert len(collect) == 1 and collect[0]['parent'] == top['id']
+    if call == 'bootstrapping':
+        # a Gram span a run, and the call's own Grams outside its runs
+        grams = [s for s in spans if s['name'] == 'gram']
+        assert {s['attrs']['route'] for s in grams} == {'stored'}
+        assert [s['parent'] for s in grams].count(top['id']) == 1
+        assert len(grams) == RUNS + 1
     # a span closes after its children
     by_id = {s['id']: s for s in spans}
     for s in spans:

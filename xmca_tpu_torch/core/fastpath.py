@@ -28,8 +28,9 @@ an explicit ``torch.Generator``, and tests inject the JAX package's own.
 
 Under a profiler the stages record spans (:mod:`xmca_tpu_torch.utils.
 trace`): ``draw`` (a +-1 field and its sums), ``gram`` (the Grams and what
-is formed from them up to the reduced kernel), ``subspace``
-(:func:`subspace_svd`) and ``project`` (the spatial vectors).
+is formed from them up to the reduced kernel; ``route='data'`` where the
+Grams are products over the data), ``subspace`` (:func:`subspace_svd`)
+and ``project`` (the spatial vectors).
 """
 import numpy as np
 import torch
@@ -139,7 +140,7 @@ def analytic_temporal_gram(X, H, jitter_rel=1e-6):
                    input_eps=_eps(X.dtype))
 
 
-@trace.spanned('gram')
+@trace.spanned('gram', route='data')
 def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
     """Chol-reduced kernel of the complexified fields, ``(M, La, Lb)``."""
     dof = Xl.shape[0] - 1
@@ -156,13 +157,34 @@ def temporal_gram(X, jitter_rel=1e-6):
                    input_eps=_eps(X.dtype))
 
 
-@trace.spanned('gram')
+@trace.spanned('gram', route='data')
 def reduced_kernel(Xl, Xr, jitter_rel=1e-6):
     """n x n matrix with the singular values of ``Xl^H Xr / dof``."""
     dof = Xl.shape[0] - 1
     La = _cholesky(temporal_gram(Xl, jitter_rel))
     Lb = _cholesky(temporal_gram(Xr, jitter_rel))
     return (La.mH @ Lb) / dof, La, Lb
+
+
+def _center_gram(G):
+    """``C G C`` with ``C = I - 1 1^T / n``: the temporal Gram of the
+    rows of a field re-centered, from their Gram ``G`` (real or
+    Hermitian) alone."""
+    return (G - G.mean(dim=1, keepdim=True) - G.mean(dim=0, keepdim=True)
+            + G.mean())
+
+
+def centered_factor(G, p, input_eps, H=None, jitter_rel=1e-6):
+    """Lower Cholesky factor of the jittered temporal Gram of a field's
+    rows re-centered, from their Gram ``G``: :func:`_center_gram`, the
+    analytic fold when ``H`` is given, the jitter at the width ``p`` and
+    the input precision ``input_eps``; the factor
+    :func:`analytic_reduced_kernel` or :func:`reduced_kernel` takes of
+    the centered rows themselves."""
+    Gc = _center_gram(G)
+    if H is not None:
+        Gc = _analytic_fold(Gc, H)
+    return _cholesky(_jitter(Gc, p, jitter_rel, input_eps=input_eps))
 
 
 def _orthonormalize(Y, method='qr'):

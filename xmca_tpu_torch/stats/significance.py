@@ -21,10 +21,17 @@ same inputs.
   by :func:`_surrogate_variance` with the fast or the exact spectrum.
 
 Bootstrapping resamples the model's own (centered, preprocessed) fields
-in moving blocks and solves each resample with :func:`_surrogate_variance`
-(the fast chol/subspace pipeline or the exact one); a model solved with
-boundary extension re-centers, re-extends and complexifies each
-resample first.  Each run draws its
+in moving blocks, by one of two routes (:func:`bootstrap_spectra`).  A
+time resample with the fast spectrum and no extension runs in Gram
+space (``'stored'``): each field's Gram is formed once a call, a run
+takes its resample's centered Gram by index algebra on it and
+back-projects through the fields in place, as the chunk-backed
+bootstrap (:mod:`xmca_tpu_torch.stats.streaming_boot`) does with the
+Grams it stores.  Every other request (extension, a column resample,
+the exact spectrum) takes the data route (``'data'``): each run gathers
+its resample and solves it with :func:`_surrogate_variance`; a model
+solved with boundary extension re-centers, re-extends and complexifies
+each resample first.  Each run draws its
 block indices, then its subspace start block, from a CPU
 ``torch.Generator`` seeded with its run seed, so the card and the CPU
 resample identically.  The JAX package's vmapped batches are XLA
@@ -43,8 +50,10 @@ columns (:func:`bootstrap_spectra`).
 Under a profiler (:mod:`xmca_tpu_torch.utils.trace`) each run of
 :func:`rule_n_generated` and :func:`bootstrap_spectra` is a ``run`` span
 (its ``seed``) holding ``start`` (the start block drawn on the host and
-copied), for a bootstrap ``resample``, and the solve's stages; the
-runs' results come to the host in ``collect``.
+copied), for a bootstrap ``resample``, and the solve's stages, a
+bootstrap's ``gram`` with its ``route``; the stored route's Grams of a
+call are one ``gram`` span outside its runs.  The runs' results come to
+the host in ``collect``.
 """
 import numpy as np
 import torch
@@ -356,6 +365,17 @@ def _space_draws(widths, device):
     return sizes, _mesh.draws_on_rank(torch.cat(pos), base)
 
 
+def _gram_route(axis, spectrum, complexify, extend, hilbert_H):
+    """True where a bootstrap solves each time resample from the fields'
+    Grams (``'stored'``): the fast spectrum of a time resample without
+    extension, complexified by the analytic fold (``hilbert_H``) or not
+    at all.  An extension's boundary forecast changes with each
+    resample, a column resample weights columns and the exact spectrum
+    solves the data: those take the data route."""
+    return (axis == 0 and spectrum == 'fast' and not (complexify and extend)
+            and (not complexify or hilbert_H is not None))
+
+
 def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
                       on_right=False, block_size=1, replace=True,
                       complexify=False, extend=False, period=1,
@@ -368,17 +388,35 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     Each run resamples the given fields (not the previous run's
     resample): ``axis=0`` resamples time steps, jointly when both fields
     are resampled; ``axis=1`` resamples columns, of the concatenated
-    fields when both are.  It then solves (and rotates) the resample with
-    :func:`_surrogate_variance` and the convergence-gated polar.
+    fields when both are.  It then solves (and rotates) the resample
+    with the convergence-gated polar, by one of two routes, counted per
+    run in ``trace.counters()['gram_routes']``:
+
+    * ``'stored'``, a time resample with the fast spectrum, unextended
+      (:func:`_gram_route`): the Gram ``G = X X^H`` of each field as
+      given is formed once a call, and a run that draws the rows ``idx``
+      takes the Gram of its re-centered resample ``C P X`` as
+      ``C G[idx][:, idx] C`` (``C G C`` for a side it does not resample,
+      factored once a call), then the same fold, jitter and Cholesky as
+      the data route (``core.fastpath.centered_factor``).  A rotated run
+      back-projects with ``(C P X)^T S = X^T (P^T C S)``, reading the
+      fields in place; an unrotated run reads no data.  No data-sized
+      tensor is made.
+    * ``'data'``, every other request: each run gathers its resample and
+      solves it with :func:`_surrogate_variance` (centering it; the fast
+      chol/subspace pipeline or the exact one).  With ``complexify`` and
+      ``extend`` ('exp'/'theta', ``period``) each resample is
+      re-centered, extended and complexified, then solved as complex
+      fields.
+
     ``hilbert_H`` is the model's Hilbert operator (the fast complexified
-    spectrum without extension needs it).  With ``complexify`` and
-    ``extend`` ('exp'/'theta', ``period``) each resample is re-centered,
-    extended and complexified, then solved as complex fields.
+    spectrum without extension needs it).
 
     ``mesh`` splits the runs over its ``ensemble_axis``.  Inside a space
     context (:func:`xmca_tpu_torch.parallel.mesh.space_context`) the
     ``fields`` are this rank's column blocks (the model's shards) and
-    every resample's contractions sum over the space group.  A column
+    every contraction sums over the space group: the stored route's
+    Grams once a call, the data route's a run.  A column
     resample (``axis=1``) draws the same global indices on every rank,
     and each rank keeps the draws that fall on its own columns (repeats
     kept, in draw order): its share of the resample, ``X_loc diag(c_loc)
@@ -405,6 +443,7 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     n_obs = int(fields[0].shape[0])
     device = fields[0].device
     real = fields[0].real.dtype
+    k = n_rot if rotated else n_out_modes
     # the resampled pool: its fields and, for a column resample, their
     # global widths (this rank's blocks summed over a space group)
     pool = ([0, 1] if on_left and on_right
@@ -445,20 +484,21 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
             out[i] = src[:, local(d)]
         return out
 
-    @trace.spanned('run')
-    def one_run(s):
-        trace.annotate(seed=s)
-        gen = torch.Generator().manual_seed(s)
+    @trace.spanned('resample')
+    def draw_rows(gen):
+        return indices(gen, n_obs) if pool else None
+
+    def start(gen):
+        return _drawn_start(gen, n_obs, k, real, device)
+
+    def data_run(gen):
         fs = resample(gen, list(fields))
         cplx = complexify
         if complexify and extend:
             fs = [_complexify(f - f.mean(dim=0), extend=extend,
                               period=period) for f in fs]
             cplx = False
-        omega = None
-        if spectrum == 'fast':
-            k = n_rot if rotated else n_out_modes
-            omega = _drawn_start(gen, n_obs, k, real, device)
+        omega = start(gen) if spectrum == 'fast' else None
         var, _, conv = _surrogate_variance(
             fs, cplx, rotated, n_rot, power, tol, method,
             spectrum=spectrum, n_modes_fast=n_out_modes,
@@ -466,6 +506,20 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
             # resamples of REAL data can have a large mode-variance
             # spread: the convergence-gated polar, as in the JAX package
             polar_method='ns-gated')
+        return var, conv
+
+    route, run = 'data', data_run
+    if _gram_route(axis, spectrum, complexify, extend, hilbert_H):
+        route, run = 'stored', _stored_runs(
+            fields, pool, draw_rows, start, k,
+            hilbert_H if complexify else None, rotated, power, tol,
+            subspace_iters)
+
+    @trace.spanned('run')
+    def one_run(s):
+        trace.annotate(seed=s)
+        trace.count('gram_routes', route)
+        var, conv = run(torch.Generator().manual_seed(s))
         flag = torch.tensor([float(bool(conv))], dtype=torch.float64)
         return torch.cat([var[:n_out_modes].to(torch.float64),
                           trace.to_device(flag, var.device, 'run.converged')])
@@ -476,3 +530,62 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     with trace.span('collect'):
         rows = trace.to_host(rows, 'collect').numpy()
     return rows[:, :-1], rows[:, -1] > 0.5
+
+
+def _stored_runs(fields, pool, draw_rows, start, k, H, rotated, power, tol,
+                 subspace_iters):
+    """The run of :func:`bootstrap_spectra`'s stored route: forms each
+    field's Gram now (a ``gram`` span of the call, outside its runs) and
+    factors every side no run resamples; returns ``run(gen)`` ->
+    ``(variance, converged)`` of one time resample drawn from ``gen``.
+
+    ``draw_rows(gen)`` and ``start(gen)`` draw a run's block indices
+    (None where ``pool`` is empty) and its start block for ``k`` modes;
+    ``H`` is the Hilbert operator of the analytic fold, None for fields
+    solved as given.  A univariate model's one field stands on both
+    sides.
+    """
+    sides = fields[:2]
+    n_obs = sides[0].shape[0]
+
+    def factor(i, idx=None):
+        G = grams[i] if idx is None else grams[i][idx][:, idx]
+        return _fast.centered_factor(G, widths[i],
+                                     _fast._eps(sides[i].dtype), H)
+
+    with trace.span('gram', route='stored'):
+        grams = [_mesh.space_sum(_fast._data_dot(f, f.mH)) for f in sides]
+        widths = [_mesh.space_total(f.shape[1], f.device) for f in sides]
+        fixed = [None if i in pool else factor(i)
+                 for i in range(len(sides))]
+
+    @trace.spanned('project')
+    def back_project(i, T, idx):
+        """``(C P X_i)^T S`` of the recovery ``T`` as ``X_i^T (P^T C
+        S)``, ``S`` the analytic stack of ``T`` when folded."""
+        S = T if H is None else _fast.analytic_projection_stack(T, H)
+        Y = S - S.mean(dim=0)
+        if i in pool:
+            Y = torch.zeros_like(Y).index_add_(0, idx, Y)
+        V = _fast._data_dot(sides[i].mH, Y)
+        return V if H is None else _fast.combine_analytic_projection(V)
+
+    def run(gen):
+        idx = draw_rows(gen)
+        omega = start(gen)
+        with trace.span('gram', route='stored'):
+            Ls = [factor(i, idx) if L is None else L
+                  for i, L in enumerate(fixed)]
+            M = (Ls[0].mH @ Ls[-1]) / (n_obs - 1)
+        U, s, V = _fast.subspace_svd(M, omega, k=k, n_iter=subspace_iters)
+        if not rotated:
+            return s, True
+        Vs = [back_project(i, torch.linalg.solve_triangular(
+                  L.mH, T, upper=True), idx)
+              for i, (L, T) in enumerate(zip(Ls, (U, V)))]
+        var, conv, _ = _fast._rotated_variance(
+            Vs[0], Vs[1] if len(Vs) == 2 else None, s, power, tol,
+            'ns-gated')
+        return var, conv
+
+    return run

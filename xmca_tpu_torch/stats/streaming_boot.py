@@ -2,9 +2,14 @@
 
 Counterpart of ``xmca_tpu/stats/streaming_boot.py``.  A chunk-backed
 model's data never sits whole on the device, so its bootstrap cannot
-resample the data and solve each resample as
-:func:`xmca_tpu_torch.stats.significance.bootstrap_spectra` does; it
-resamples the Grams the streamed solve stored:
+resample the data; it resamples the Grams the streamed solve stored.
+The in-memory bootstrap
+(:func:`xmca_tpu_torch.stats.significance.bootstrap_spectra`) runs the
+same time-axis algebra on Grams it forms once a call, with the same
+centering and factor (``core.fastpath.centered_factor``); what stays
+this module's own is the streaming: the stored Grams, the batched
+projection passes, the counts passes of a column resample and the
+mode-space deflation.
 
 **Time axis (axis=0).**  A moving-block row draw ``P`` (indices ``idx``)
 resamples the centered field to ``A = C P Xc`` (``C`` re-centers), whose
@@ -59,8 +64,8 @@ import numpy as np
 import torch
 
 from xmca_tpu_torch.core import fastpath as _fast
-from xmca_tpu_torch.core.streaming import (_fold_jitter, _packed_cols,
-                                           _put_chunk, _recovery_weights,
+from xmca_tpu_torch.core.streaming import (_packed_cols, _put_chunk,
+                                           _recovery_weights,
                                            _transform_chunk, _weight_slice)
 from xmca_tpu_torch.parallel import mesh as _mesh
 from xmca_tpu_torch.stats.significance import _block_indices, run_seeds
@@ -116,17 +121,11 @@ def deflated_gram(G, XcW, S, W):
     return G - B - B.T + (Ss @ _mesh.space_sum(Ws.T @ Ws)) @ Ss.T
 
 
-def _center_gram(Gs):
-    """``C Gs C``: the Gram of the re-centered (resampled) data."""
-    return (Gs - Gs.mean(dim=1, keepdim=True) - Gs.mean(dim=0, keepdim=True)
-            + Gs.mean())
-
-
 def _fold_chol(Gs, p, H, eps, complexify):
     """Center -> fold (complexified) -> jitter (floor at the kept width
     ``p``) -> Cholesky of one surrogate Gram."""
-    return _fast._cholesky(_fold_jitter(_center_gram(Gs), H, p, _JITTER_REL,
-                                        eps, complexify))
+    return _fast.centered_factor(Gs, p, eps, H if complexify else None,
+                                 _JITTER_REL)
 
 
 def _draw(su, seed, n_total):

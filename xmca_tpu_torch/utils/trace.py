@@ -29,8 +29,10 @@ it::
 * :func:`counters` holds every count of the port: kernel ``launches`` by
   kernel (``ops._build.launch_counts`` is a view of them), ``collectives``
   and ``collective_bytes`` by operation (``parallel.mesh.
-  collective_counts``), ``host_syncs`` and ``h2d_bytes`` by site.  They
-  count with or without a profiler.
+  collective_counts``), ``host_syncs`` and ``h2d_bytes`` by site, and
+  bootstrap runs by the route of their Grams (``gram_routes``:
+  ``'stored'`` or ``'data'``, :func:`xmca_tpu_torch.stats.significance.
+  bootstrap_spectra`).  They count with or without a profiler.
 
 Span times convert to the Unix clock with :func:`unix_ns`, from an
 anchor (``time.time_ns()`` read between two ``perf_counter_ns()`` reads)
@@ -53,7 +55,7 @@ __all__ = ['MAX_SPANS', 'enabled', 'span', 'spanned', 'annotate', 'add',
 MAX_SPANS = 1_000_000
 
 _KINDS = ('launches', 'collectives', 'collective_bytes', 'host_syncs',
-          'h2d_bytes')
+          'h2d_bytes', 'gram_routes')
 _COUNTERS = {kind: collections.Counter() for kind in _KINDS}
 
 # True while a torch.profiler.profile (or the autograd profiler) runs
