@@ -11,6 +11,12 @@ CPU.
 * The host syncs of a call follow from its ``varimax`` spans'
   ``iterations`` and ``polar_steps``, and repeat exactly.
 * Every answer is bit-equal with the profiler on and off.
+* A model solved with theta extension records, under each bootstrap
+  ``run``, one ``extend`` span a field (its ``seasonal`` span and its
+  two ``ses`` sweeps, grids 33 and 17) and its ``analytic`` span;
+  ``forecast_columns`` counts four series a column a run (forecast and
+  backcast of both fields), with or without a profiler, and the answers
+  are bit-equal with the profiler on and off.
 * ``ops._build.launch_counts`` and ``parallel.mesh.collective_counts``
   read as they did before they became views of the registry.
 """
@@ -284,6 +290,92 @@ def test_answers_are_bit_equal_with_and_without_a_profiler():
     assert plain.keys() == traced.keys()
     for key in plain:
         np.testing.assert_array_equal(plain[key], traced[key], err_msg=key)
+
+
+def _fit_extended():
+    """The extended pipeline at a small size: theta (period 12) before
+    the truncated complexified solve, varimax of 4 modes."""
+    m = xMCA(*_fields(), device='cpu')
+    m.set_solver(truncate=6, seed=3)
+    m.normalize()
+    m.apply_coslat()
+    m.solve(complexify=True, extend='theta', period=12)
+    m.rotate(N_ROT)
+    return m
+
+
+def _extended_answers():
+    m = _fit_extended()
+    return {'svals': np.asarray(m.singular_values().values),
+            'variance': np.asarray(m.variance().values),
+            'boot': _boot(m)}
+
+
+def test_extension_records_its_stages_under_each_run():
+    m = _fit_extended()
+    p = GRID[0] * GRID[1]
+    trace.reset_counters('forecast_columns', 'gram_routes')
+    _, spans = _profiled(lambda: _boot(m))
+    assert trace.counts('forecast_columns') == {'theta': 4 * p * RUNS}
+    assert trace.counts('gram_routes') == {'data': RUNS}
+    top, runs, under = _tree(spans, 'bootstrapping')
+    by_id = {s['id']: s for s in spans}
+    assert len(runs) == RUNS
+    for r in runs:
+        kids = [s for s in under[r['id']] if s['parent'] == r['id']]
+        extend = [s for s in kids if s['name'] == 'extend']
+        analytic = [s for s in kids if s['name'] == 'analytic']
+        assert [s['attrs'] for s in extend] == [
+            {'method': 'theta', 'columns': 2 * p, 'steps': N_OBS}] * 2
+        assert [s['attrs'] for s in analytic] == [{'chunks': 1}] * 2
+        for e in extend:
+            inner = [s for s in spans if s['parent'] == e['id']]
+            assert [s['name'] for s in inner] == ['seasonal', 'ses', 'ses']
+            assert inner[0]['attrs'] == {'period': 12, 'columns': 2 * p}
+            assert [s['attrs'] for s in inner[1:]] == [
+                {'steps': N_OBS, 'grid': g, 'columns': 2 * p}
+                for g in (33, 17)]
+        # the counter and the spans count the same series
+        assert sum(s['attrs']['columns'] for s in extend) == 4 * p
+    ses = [s for s in spans if s['name'] == 'ses']
+    assert len(ses) == 4 * RUNS
+    assert all(by_id[by_id[s['parent']]['parent']]['name'] == 'run'
+               for s in ses)
+    # without a profiler the counter counts as much, and no span is kept
+    trace.reset_counters('forecast_columns')
+    trace.clear()
+    _boot(m)
+    assert trace.spans() == []
+    assert trace.counts('forecast_columns') == {'theta': 4 * p * RUNS}
+
+
+def test_extended_answers_are_bit_equal_with_and_without_a_profiler():
+    plain = _extended_answers()
+    traced, spans = _profiled(_extended_answers)
+    assert {'extend', 'seasonal', 'ses', 'analytic'} <= {
+        s['name'] for s in spans}
+    for key in plain:
+        np.testing.assert_array_equal(plain[key], traced[key], err_msg=key)
+
+
+def test_keeping_collects_each_runs_singular_values(model):
+    """``keep`` does nothing with no list open; inside ``keeping`` the
+    rotation's site keeps one copy of its singular values a run, and the
+    answers are bit-equal with and without it."""
+    trace.keep('rotated_svals', torch.ones(3))
+    plain = _boot(model)
+    with trace.keeping('rotated_svals') as kept:
+        with pytest.raises(RuntimeError):
+            with trace.keeping('rotated_svals'):
+                pass
+        kept_boot = _boot(model)
+    np.testing.assert_array_equal(plain, kept_boot)
+    assert len(kept) == RUNS
+    for s in kept:
+        assert s.shape == (N_ROT,) and bool((s > 0).all())
+        assert bool((s[:-1] >= s[1:]).all())
+    _boot(model)
+    assert len(kept) == RUNS
 
 
 def test_launch_and_collective_counts_read_as_before():

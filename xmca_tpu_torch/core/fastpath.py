@@ -324,6 +324,7 @@ def _rotated_variance(Vl, Vr, s, power, tol, polar_method, space=None):
     n_iter)``; a non-finite variance counts as not converged."""
     from xmca_tpu_torch.core.rotation import promax
 
+    trace.keep('rotated_svals', s)
     sqrt_s = torch.sqrt(s).to(Vl.dtype)
     L = Vl if Vr is None else torch.cat([Vl, Vr], dim=0)
     L = L * sqrt_s[None, :]

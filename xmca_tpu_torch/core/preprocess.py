@@ -9,11 +9,19 @@ counterpart here.  ``complexify(extend='exp'|'theta')`` forecasts and
 backcasts every column (:func:`exp_forecast`,
 :func:`xmca_tpu_torch.core.theta.theta_forecast`) and takes the analytic
 signal of the tripled record.
+
+Under a profiler (:mod:`xmca_tpu_torch.utils.trace`) an extended
+``complexify`` is an ``extend`` span (its ``method``, the ``columns``
+forecast and backcast, the ``steps`` of each) up to the tripled record,
+then an ``analytic`` span (its FFT ``chunks``) for the record's analytic
+signal, cut and re-centered.  :func:`extend_field` counts the series it
+continues in ``trace.counters()['forecast_columns']``, by method.
 """
 import numpy as np
 import torch
 
 from xmca_tpu_torch.core.theta import theta_forecast
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['center', 'standardize', 'analytic_signal', 'complexify',
            'exp_forecast', 'extend_field', 'check_extension']
@@ -37,6 +45,11 @@ def _analytic_weights(n, dtype):
     return h
 
 
+def _n_chunks(n, p):
+    """Column chunks of the analytic signal of an (n, p) field."""
+    return -(-n * p // _CHUNK_ELEMS)
+
+
 def analytic_signal(x):
     """Analytic signal of ``x (time, space)`` along dim 0
     (``scipy.signal.hilbert(x, axis=0)``), one column chunk at a time
@@ -46,7 +59,7 @@ def analytic_signal(x):
         # a rank's empty share of a space-axis resample
         return torch.complex(x, torch.zeros_like(x))
     h = torch.as_tensor(_analytic_weights(n, np.float64), device=x.device)
-    n_chunks = -(-n * p // _CHUNK_ELEMS)
+    n_chunks = _n_chunks(n, p)
     chunk = -(-p // n_chunks)
     out = None
     for c0 in range(0, p, chunk):
@@ -93,6 +106,7 @@ def extend_field(field, method, period):
     """Forecast continuation of every column (``method`` 'exp' or
     'theta'); backcasts are forecasts of the time-flipped field."""
     check_extension(method)
+    trace.count('forecast_columns', method, field.shape[1])
     if method == 'theta':
         return theta_forecast(field, steps=field.shape[0],
                               period=int(period), theta=20.0)
@@ -107,14 +121,16 @@ def complexify(field, extend=False, period=1):
     if not extend or field.shape[1] == 0:
         return analytic_signal(field)
     n, p = field.shape
-    # forecast and backcast in one batched call: the columns of
-    # [field | flipped field] are independent series
-    ext = extend_field(torch.cat([field, field.flip(0)], dim=1), extend,
-                       period)
-    full = torch.cat([ext[:, p:].flip(0), field, ext[:, :p]], dim=0)
-    del ext
-    analytic = analytic_signal(full)[n:2 * n]
-    return analytic - analytic.mean(dim=0)
+    with trace.span('extend', method=extend, columns=2 * p, steps=n):
+        # forecast and backcast in one batched call: the columns of
+        # [field | flipped field] are independent series
+        ext = extend_field(torch.cat([field, field.flip(0)], dim=1), extend,
+                           period)
+        full = torch.cat([ext[:, p:].flip(0), field, ext[:, :p]], dim=0)
+        del ext
+    with trace.span('analytic', chunks=_n_chunks(3 * n, p)):
+        analytic = analytic_signal(full)[n:2 * n]
+        return analytic - analytic.mean(dim=0)
 
 
 def center(field):

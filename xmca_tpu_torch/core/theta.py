@@ -12,9 +12,16 @@ The JAX package's ``lax.scan`` over time becomes a Python loop of batched
 tensor operations: six elementwise launches a step, each over all columns
 and grid points at once, so one forecast costs about ``2 x 6 T`` launches.
 The SES sweeps run in float64 (:func:`_ses_fit`).
+
+Under a profiler (:mod:`xmca_tpu_torch.utils.trace`) a forecast records
+a ``seasonal`` span (the seasonal component and the deseasonalized
+series) and one ``ses`` span a sweep, with its ``steps``, ``grid``
+(smoothing parameters a column: 33 coarse, 17 refined) and ``columns``.
 """
 import numpy as np
 import torch
+
+from xmca_tpu_torch.utils import trace
 
 __all__ = ['theta_forecast']
 
@@ -95,22 +102,23 @@ def _ses_sweep(y, alphas):
     """
     T, p = y.shape
     a = alphas[:, None] if alphas.dim() == 1 else alphas
-    keep = 1.0 - a
-    part = y.new_zeros((a.shape[0], p))
-    h = torch.ones_like(a)
-    s_cc = torch.zeros_like(part)
-    s_hc = torch.zeros_like(part)
-    s_h2 = torch.zeros_like(a)
-    for t in range(T):
-        c = y[t] - part                     # residual at l0 = 0
-        s_cc.addcmul_(c, c)
-        s_hc.addcmul_(h, c)
-        s_h2.addcmul_(h, h)
-        part.addcmul_(a, c)
-        h.mul_(keep)
-    l0_opt = s_hc / s_h2
-    sse = s_cc - s_hc * s_hc / s_h2
-    return sse, part + h * l0_opt
+    with trace.span('ses', steps=T, grid=a.shape[0], columns=p):
+        keep = 1.0 - a
+        part = y.new_zeros((a.shape[0], p))
+        h = torch.ones_like(a)
+        s_cc = torch.zeros_like(part)
+        s_hc = torch.zeros_like(part)
+        s_h2 = torch.zeros_like(a)
+        for t in range(T):
+            c = y[t] - part                     # residual at l0 = 0
+            s_cc.addcmul_(c, c)
+            s_hc.addcmul_(h, c)
+            s_h2.addcmul_(h, h)
+            part.addcmul_(a, c)
+            h.mul_(keep)
+        l0_opt = s_hc / s_h2
+        sse = s_cc - s_hc * s_hc / s_h2
+        return sse, part + h * l0_opt
 
 
 def _ses_fit(y, n_alphas=33, n_refine=17):
@@ -152,13 +160,14 @@ def theta_forecast(field, steps, period=1, theta=20.0):
     T, p = y.shape
     deseasonalize = period is not None and period > 1 and T >= 2 * period
     if deseasonalize:
-        sa, sm, usable_mul = _seasonal_component(y, period)
-        phases = torch.arange(T, device=y.device) % period
-        seas_mul = sm[phases]
-        safe_mul = torch.where(seas_mul.abs() > 1e-12, seas_mul, 1.0)
-        y_ds = torch.where(usable_mul[None, :], y / safe_mul,
-                           y - sa[phases])
-        del seas_mul, safe_mul
+        with trace.span('seasonal', period=period, columns=p):
+            sa, sm, usable_mul = _seasonal_component(y, period)
+            phases = torch.arange(T, device=y.device) % period
+            seas_mul = sm[phases]
+            safe_mul = torch.where(seas_mul.abs() > 1e-12, seas_mul, 1.0)
+            y_ds = torch.where(usable_mul[None, :], y / safe_mul,
+                               y - sa[phases])
+            del seas_mul, safe_mul
     else:
         y_ds = y
 

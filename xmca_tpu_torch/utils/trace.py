@@ -32,7 +32,17 @@ it::
   collective_counts``), ``host_syncs`` and ``h2d_bytes`` by site, and
   bootstrap runs by the route of their Grams (``gram_routes``:
   ``'stored'`` or ``'data'``, :func:`xmca_tpu_torch.stats.significance.
-  bootstrap_spectra`).  They count with or without a profiler.
+  bootstrap_spectra`) and the series that boundary extension forecasts
+  or backcasts, by method (``forecast_columns``: ``'exp'`` or
+  ``'theta'``, :func:`xmca_tpu_torch.core.preprocess.extend_field`).
+  They count with or without a profiler.
+* :func:`keeping` opens a list for the intermediate values a site hands
+  :func:`keep` under a name, for a caller that checks them (a benchmark's
+  comparison with a reference); with no list open, :func:`keep` does
+  nothing.  Sites: ``'rotated_svals'``, the singular values of each
+  truncated solve that a rotation follows, as the rotation takes them
+  (:func:`xmca_tpu_torch.core.fastpath._rotated_variance`: a bootstrap
+  or Rule-N run of a rotated model).
 
 Span times convert to the Unix clock with :func:`unix_ns`, from an
 anchor (``time.time_ns()`` read between two ``perf_counter_ns()`` reads)
@@ -42,6 +52,7 @@ process, at most :data:`MAX_SPANS`; :func:`dropped` counts the rest.
 Spans are kept for one thread: the port issues its work from one.
 """
 import collections
+import contextlib
 import functools
 import time
 
@@ -50,13 +61,17 @@ import torch
 
 __all__ = ['MAX_SPANS', 'enabled', 'span', 'spanned', 'annotate', 'add',
            'to_host', 'to_device', 'count', 'counts', 'counters',
-           'reset_counters', 'spans', 'clear', 'dropped', 'unix_ns']
+           'reset_counters', 'keep', 'keeping', 'spans', 'clear', 'dropped',
+           'unix_ns']
 
 MAX_SPANS = 1_000_000
 
 _KINDS = ('launches', 'collectives', 'collective_bytes', 'host_syncs',
-          'h2d_bytes', 'gram_routes')
+          'h2d_bytes', 'gram_routes', 'forecast_columns')
 _COUNTERS = {kind: collections.Counter() for kind in _KINDS}
+
+# the lists keeping() holds open, by name
+_KEPT = {}
 
 # True while a torch.profiler.profile (or the autograd profiler) runs
 enabled = torch._C._autograd._profiler_enabled
@@ -228,6 +243,28 @@ def reset_counters(*kinds):
     """Zero the counters ``kinds`` (all of them when none is named)."""
     for kind in kinds or _KINDS:
         _COUNTERS[kind].clear()
+
+
+def keep(name, x):
+    """Append a detached copy of the tensor ``x`` to the list open under
+    ``name`` (:func:`keeping`), if one is; a dict lookup otherwise."""
+    kept = _KEPT.get(name)
+    if kept is not None:
+        kept.append(x.detach().clone())
+
+
+@contextlib.contextmanager
+def keeping(name):
+    """``with keeping(name) as kept:`` collects in ``kept``, in order,
+    the copies :func:`keep` makes under ``name`` inside the block; they
+    stay where they were made (no read, no copy to the host)."""
+    if name in _KEPT:
+        raise RuntimeError('already keeping {!r}'.format(name))
+    kept = _KEPT[name] = []
+    try:
+        yield kept
+    finally:
+        del _KEPT[name]
 
 
 def _device_ms(rec):
