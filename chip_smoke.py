@@ -17,6 +17,9 @@
    K1 (syrk) with the median, least and largest of its per-launch
    times, and in the tile order of each band height of SYRK_BANDS
    (``syrk_sweep``: bit-equal, timed, the row panels a wave reads);
+   the SES sweep kernel (``check_ses``) at the monthly deployment's
+   (480, 2076480), coarse and refined grids, against the plain loop on
+   the card, timed beside its least time, its registers and spills;
 3. drives the main path once through the public API at full width: two
    synthetic (2000 steps x 250 x 400 cells) f32 fields through
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
@@ -86,6 +89,8 @@
 12. ``extend_path``: the main path with ``solve(complexify=True,
    extend='exp'|'theta', period=365)``, ``rule_n(16)`` (exactly 2 x 16
    launches of syrk and sign_field_sums each) and ``bootstrapping(4)``;
+   with 'theta', the SES kernel launched 2 x 2 times by the solve and as
+   many by each bootstrap run, and never by the Rule-N runs;
    the theta forecast's wall and launches at full width, and 4096 of its
    columns in f32 on the card against f64 on the CPU;
 13. ``stream_path``: ``xMCA.from_chunks`` over the same host fields (16384-
@@ -650,20 +655,31 @@ def check_surrogate_gram(torch):
                 memory_growth_mb=growth / 1e6, **b)
 
 
-def project_registers():
-    """Registers of each K4 kernel, from this process's -Xptxas -v log
-    (empty when the library was not rebuilt here)."""
+# the monthly deployment's SES sweeps: 480 months of the [field | flipped
+# field] block of ERA5's 0.25-deg grid (2 x 1038240 series)
+SES_T, SES_P = 480, 2 * 721 * 1440
+
+
+def kernel_resources(name):
+    """``{entry function: (registers, spill store bytes, spill load
+    bytes)}`` of each kernel whose mangled name holds ``name``, from this
+    process's -Xptxas -v log (empty when the library was not rebuilt
+    here)."""
     import re
     from xmca_tpu_torch.ops import _build
-    regs, fn = {}, None
+    out, fn, spills = {}, None, (0, 0)
     for line in _build.build_log().splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
-            fn = m.group(1)
+            fn = m.group(1) if name in m.group(1) else None
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r'Used (\d+) registers', line)
-        if m and fn and 'project_kernel' in fn:
-            regs[fn] = int(m.group(1))
-    return regs
+        if m and fn:
+            out[fn] = (int(m.group(1)),) + spills
+    return out
 
 
 def check_surrogate_project(torch):
@@ -683,7 +699,7 @@ def check_surrogate_project(torch):
            .format(rel))
     _check(torch.equal(P, again), 'surrogate_project not the same bits '
            'twice')
-    regs = project_registers()
+    regs = {k: v[0] for k, v in kernel_resources('project_kernel').items()}
     _check(all(r <= 96 for r in regs.values()),
            'surrogate_project kernels above 96 registers: {}'.format(regs))
     ms = _time_ms(torch, lambda: surrogate_project(
@@ -710,6 +726,81 @@ def check_surrogate_project(torch):
               b['generation_ms']))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 field_plus_mm_ms=comp_ms, **b)
+
+
+def check_ses(torch):
+    """The SES sweep kernel at the monthly deployment's (480, 2076480):
+    the coarse 33-point sweep and the 17-point refinement against the
+    plain loop on the card (the same chosen points, alpha and ``l_T`` bit
+    for bit, SSE and every point's ``l_T`` within 1e-12 relative), each
+    timed beside its least time (``perfbench/roofline_ext.py``) and the
+    plain loop's; its registers (at most 128) and spills (none) from the
+    build log."""
+    import numpy as np
+    from perfbench.roofline_ext import ses_least_s
+    from xmca_tpu_torch.core.theta import ALPHA_CLIP, _ses_sweep
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.ops.ses import ses_sweep
+    T, p = SES_T, SES_P
+    gen = torch.Generator(device='cuda').manual_seed(20)
+    y = torch.randn((T, p), generator=gen, device='cuda')
+    torch.cumsum(y.mul_(0.3), dim=0, out=y)        # persistent series
+    y[:, :1024] = y[:1, :1024]                     # and constant ones
+    coarse = torch.as_tensor(np.linspace(0.02, 0.98, 33), device='cuda')
+    spacing = 0.96 / 32
+    offsets = torch.as_tensor(np.linspace(-spacing, spacing, 17),
+                              device='cuda')
+    _build.reset_launch_counts()
+    y64 = y.double()
+    out, best = {}, None
+    for name in ('coarse', 'refine'):
+        if best is None:
+            grid, args = coarse[:, None], (y, coarse)
+        else:
+            grid = torch.clamp(coarse[best][None, :] + offsets[:, None],
+                               *ALPHA_CLIP)
+            args = (y, coarse, best, offsets, ALPHA_CLIP)
+        k_best, k_alpha, k_level, k_sse, k_lT = ses_sweep(*args, states=True)
+        sse, lT = _ses_sweep(y64, grid)
+        want = torch.argmin(sse, dim=0)
+        torch.cuda.synchronize()
+        rel = max(float(((k - r).abs() / r.abs().clamp_min(1e-300)).max())
+                  for k, r in ((k_sse, sse), (k_lT, lT)))
+        _check(torch.equal(k_best, want), 'ses_sweep {}: chosen points '
+               'differ from the plain loop'.format(name))
+        _check(torch.equal(k_alpha, grid.expand_as(sse).gather(
+            0, want[None])[0]) and torch.equal(
+                k_level, lT.gather(0, want[None])[0]),
+            'ses_sweep {}: alpha or l_T differ from the plain loop'.format(
+                name))
+        _check(rel <= 1e-12, 'ses_sweep {}: SSE or l_T rel err {:.2e} > '
+               '1e-12'.format(name, rel))
+        del k_sse, k_lT, sse, lT
+        G = grid.shape[0]
+        ms = _time_ms(torch, lambda: ses_sweep(*args), 5)
+        plain_ms = _time_ms(torch, lambda: _ses_sweep(y64, grid), 1)
+        least_ms = 1e3 * ses_least_s(T, G, p)
+        out[name] = dict(grid=G, ms=ms, plain_ms=plain_ms, bound_ms=least_ms,
+                         share=least_ms / ms, max_rel_err=rel)
+        print('ses_sweep {} (G = {}) at {}: chosen points, alpha and l_T '
+              'bit-equal to the plain loop, SSE and l_T rel err {:.1e} (tol '
+              '1e-12); kernel {:.3f} ms, least time {:.3f} ms ({:.1f}%), '
+              'plain loop {:.1f} ms'.format(name, G, (T, p), rel, ms,
+                                            least_ms, 100 * least_ms / ms,
+                                            plain_ms))
+        best = want
+    import re
+    res = {}
+    for fn, v in kernel_resources('ses_kernel').items():
+        res[re.search(r'ses_kernelI(\w)E', fn).group(1)] = v
+    print('ses_sweep kernels (registers, spill store / load bytes; f: '
+          'float32 series, d: float64): {}'.format(res or 'not rebuilt here'))
+    _check(all(v[0] <= 128 and v[1] == v[2] == 0 for v in res.values()),
+           'ses_sweep kernels above 128 registers or spilling: {}'.format(
+               res))
+    # this check's own launches; the public path's are extend_path's
+    out['check_launches'] = _build.launch_counts().get('ses_sweep', 0)
+    return out
 
 
 def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
@@ -1610,7 +1701,7 @@ N_ENS = {'draw': 8, 'exact': 2, 'normal16': 8, 'normal32': 8,
 N_REF_1E8 = 32
 N_INT8 = 4           # seeds of the int8 variant against the triangle Gram
 _KERNELS = ('syrk', 'sign_field_sums', 'surrogate_gram', 'surrogate_project',
-            'surrogate_field')
+            'surrogate_field', 'ses_sweep')
 
 
 def _counts(launches):
@@ -2180,13 +2271,15 @@ def extend_path(torch, left, right, card):
     (period 365), ``xMCA -> set_solver(truncate=10) -> normalize ->
     apply_coslat -> solve(complexify=True, extend=...) -> rotate(10) ->
     rule_n(16)``, the counters reset just before and read just after, then
-    ``bootstrapping(4)`` (standard); the theta forecast's own wall and
-    launches at full width and its f32 card error against f64.  Returns
-    the 'exp' model (stream_path compares against it)."""
+    ``bootstrapping(4)`` (standard); the SES kernel's launches in each
+    stage, gated; the theta forecast's own wall and launches at full
+    width and its f32 card error against f64.  Returns the 'exp' model
+    (stream_path compares against it) and the SES kernel's launches a
+    stage of each."""
     import numpy as np
     from xmca_tpu_torch.ops import _build
     from xmca_tpu_torch.xarray import xMCA
-    models = {}
+    models, ses_launches = {}, {}
     for extend in ('exp', 'theta'):
         walls = {}
         torch.cuda.synchronize()
@@ -2204,6 +2297,7 @@ def extend_path(torch, left, right, card):
                prepare)
         _timed(torch, walls, 'solve', lambda: m.solve(
             complexify=True, extend=extend, period=PERIOD))
+        ses = {'solve': _build.launch_counts().get('ses_sweep', 0)}
         _timed(torch, walls, 'rotate', lambda: m.rotate(N_ROT))
         null = _timed(torch, walls, 'rule_n', lambda: _vals(
             m.rule_n(N_EXT_RUNS, seed=SEED)))
@@ -2212,6 +2306,9 @@ def extend_path(torch, left, right, card):
         boot = _timed(torch, walls, 'bootstrapping', lambda: _vals(
             m.bootstrapping(N_EXT_BOOT, n_modes=N_ROT,
                             block_size=BOOT_BLOCK, seed=SEED)))
+        ses['rotate + rule_n'] = launches['ses_sweep'] - ses['solve']
+        ses['bootstrapping'] = (_build.launch_counts().get('ses_sweep', 0)
+                                - launches['ses_sweep'])
         svals, var = _vals(m.singular_values(N_ROT)), _vals(m.variance(N_ROT))
         _print_walls('extend_path {} (period {}) at {} x 2 x {} f32; {}'
                      .format(extend, PERIOD, N_OBS, N_LAT * N_LON, card),
@@ -2230,6 +2327,16 @@ def extend_path(torch, left, right, card):
                and m._fields['left'].is_complex(),
                'extend_path {}: the model is not extended'.format(extend))
         _launch_gate('extend_path ' + extend, launches, N_EXT_RUNS)
+        # the theta fit sweeps twice a forecast: the solve forecasts both
+        # fields, and each bootstrap run (the data route) its resamples
+        want = ({'solve': 2 * 2, 'rotate + rule_n': 0,
+                 'bootstrapping': 2 * 2 * N_EXT_BOOT} if extend == 'theta'
+                else dict.fromkeys(ses, 0))
+        print('extend_path {}: ses_sweep launches {} (want {})'.format(
+            extend, ses, want))
+        _check(ses == want, 'extend_path {}: ses_sweep launched {}, not {}'
+               .format(extend, ses, want))
+        ses_launches[extend] = ses
         _check(null.shape == (N_ROT, N_EXT_RUNS),
                'extend_path {}: Rule-N kept {} of {} runs'.format(
                    extend, null.shape[1], N_EXT_RUNS))
@@ -2254,7 +2361,7 @@ def extend_path(torch, left, right, card):
     _check(dev.max() < THETA_TOL['max']
            and np.median(dev) < THETA_TOL['median'],
            'theta forecasts: card f32 and CPU f64 disagree')
-    return models['exp']
+    return models['exp'], ses_launches
 
 
 def _host_loader(torch, arr, width, passes=None):
@@ -3643,6 +3750,7 @@ def main():
     k5 = check_surrogate_field(torch)
     k3 = check_surrogate_gram(torch)
     k4 = check_surrogate_project(torch)
+    k6 = check_ses(torch)
 
     left, right = make_fields(N_OBS, N_LAT, N_LON)
     torch.cuda.synchronize()
@@ -3685,7 +3793,7 @@ def main():
     boot_path(torch, m, card)
     saveload_path(torch, m, left, right, card)
     ens = ensemble_path(torch, m, null, card)
-    m_exp = extend_path(torch, left, right, card)
+    m_exp, ext_ses = extend_path(torch, left, right, card)
     stream_peak, ms, arrays = stream_path(torch, m, m_exp, left, right, card)
     stream_boot_path(torch, ms, m, arrays, card)
     del m, m_exp, ms, arrays
@@ -3753,6 +3861,12 @@ def main():
              launches=sum(ens[d]['launches']['surrogate_field']
                           for d in ('normal16', 'normal32', 'rademacher')),
              **k5),
+        # port-only: the JAX package's lax.scan has no Pallas counterpart;
+        # on the public path of extend='theta' (extend_path)
+        dict(name='ses_sweep', route='cuda',
+             source='xmca_tpu_torch/csrc/ses_sweep.cu', replaces=None,
+             launches=sum(ext_ses['theta'].values()),
+             launches_by_stage=ext_ses['theta'], **k6),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

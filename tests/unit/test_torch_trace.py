@@ -333,8 +333,8 @@ def test_extension_records_its_stages_under_each_run():
             assert [s['name'] for s in inner] == ['seasonal', 'ses', 'ses']
             assert inner[0]['attrs'] == {'period': 12, 'columns': 2 * p}
             assert [s['attrs'] for s in inner[1:]] == [
-                {'steps': N_OBS, 'grid': g, 'columns': 2 * p}
-                for g in (33, 17)]
+                {'steps': N_OBS, 'grid': g, 'columns': 2 * p,
+                 'route': 'plain'} for g in (33, 17)]
         # the counter and the spans count the same series
         assert sum(s['attrs']['columns'] for s in extend) == 4 * p
     ses = [s for s in spans if s['name'] == 'ses']

@@ -8,22 +8,35 @@ by simple exponential smoothing (SSE over a 33-point alpha grid, then a
 optimal in closed form) and forecast with the Theta drift
 ``l_T + (theta-1)/theta * b0 * (h - 1 + 1/a - (1-a)^T/a)``, re-seasonalized.
 
-The JAX package's ``lax.scan`` over time becomes a Python loop of batched
-tensor operations: six elementwise launches a step, each over all columns
-and grid points at once, so one forecast costs about ``2 x 6 T`` launches.
-The SES sweeps run in float64 (:func:`_ses_fit`).
+The JAX package's ``lax.scan`` over time has two routes here, chosen by
+the field's device (:func:`_ses_fit`).  On a CUDA device each SES sweep
+is one launch of a hand-written kernel (:func:`xmca_tpu_torch.ops.ses.
+ses_sweep`) that keeps every series' states in registers and chooses
+its best grid point itself.  On the CPU, the plain version
+(:func:`_ses_sweep`) is a Python loop of batched tensor operations: six
+elementwise launches a step, each over all columns and grid points at
+once, so one forecast costs about ``2 x 6 T`` launches.  Both sweep in
+float64 and round alike, so they choose the same grid points.
 
 Under a profiler (:mod:`xmca_tpu_torch.utils.trace`) a forecast records
 a ``seasonal`` span (the seasonal component and the deseasonalized
 series) and one ``ses`` span a sweep, with its ``steps``, ``grid``
-(smoothing parameters a column: 33 coarse, 17 refined) and ``columns``.
+(smoothing parameters a column: 33 coarse, 17 refined), ``columns`` and
+``route`` (``'kernel'`` or ``'plain'``).
 """
 import numpy as np
 import torch
 
+from xmca_tpu_torch.ops import ses
 from xmca_tpu_torch.utils import trace
 
 __all__ = ['theta_forecast']
+
+# the SES fit's smoothing parameters: a coarse grid of 33 points of
+# [0.02, 0.98], then 17 across one coarse spacing either side of each
+# column's best point, clipped to ALPHA_CLIP
+ALPHA_RANGE, N_ALPHAS, N_REFINE = (0.02, 0.98), 33, 17
+ALPHA_CLIP = (1e-4, 1.0 - 1e-6)
 
 
 # rows of the trend formed by one banded product: the band matrix stays
@@ -102,7 +115,8 @@ def _ses_sweep(y, alphas):
     """
     T, p = y.shape
     a = alphas[:, None] if alphas.dim() == 1 else alphas
-    with trace.span('ses', steps=T, grid=a.shape[0], columns=p):
+    with trace.span('ses', steps=T, grid=a.shape[0], columns=p,
+                    route='plain'):
         keep = 1.0 - a
         part = y.new_zeros((a.shape[0], p))
         h = torch.ones_like(a)
@@ -121,13 +135,15 @@ def _ses_sweep(y, alphas):
         return sse, part + h * l0_opt
 
 
-def _ses_fit(y, n_alphas=33, n_refine=17):
+def _ses_fit(y):
     """Batched SES fit of every column: ``(alpha (p,), level l_T (p,))``.
 
-    A coarse sweep over ``n_alphas`` points of [0.02, 0.98], then one
-    refinement sweep of ``n_refine`` points spanning one coarse spacing
-    either side of each column's best point, clipped to [1e-4, 1 - 1e-6];
-    ties go to the first index (``argmin``).
+    A coarse sweep over the ``N_ALPHAS`` points of ``ALPHA_RANGE``, then
+    one refinement sweep of ``N_REFINE`` points spanning one coarse
+    spacing either side of each column's best point, clipped to
+    ``ALPHA_CLIP``; ties go to the first index (``argmin``).  A CUDA
+    tensor takes the kernel (:func:`_ses_fit_kernel`), any other the
+    plain loop (:func:`_ses_fit_plain`).
 
     The sweeps run in float64 whatever ``y``'s dtype (the JAX package
     sweeps in the field's): the argmin picks a discrete alpha among SSEs
@@ -135,22 +151,49 @@ def _ses_fit(y, n_alphas=33, n_refine=17):
     for some columns, which moves their forecasts by up to ~1e-2 of the
     column's std.  ``alpha`` and ``l_T`` come back in ``y``'s dtype.
     """
-    dtype = y.dtype
+    lo, hi = ALPHA_RANGE
+    coarse = torch.as_tensor(np.linspace(lo, hi, N_ALPHAS),
+                             dtype=torch.float64, device=y.device)
+    spacing = (hi - lo) / (N_ALPHAS - 1)
+    offsets = torch.as_tensor(np.linspace(-spacing, spacing, N_REFINE),
+                              dtype=torch.float64, device=y.device)
+    fit = _ses_fit_kernel if y.is_cuda else _ses_fit_plain
+    alpha, level = fit(y, coarse, offsets)
+    return alpha.to(y.dtype), level.to(y.dtype)
+
+
+def _ses_fit_plain(y, coarse, offsets):
+    """The fit as tensor operations on any device: float64 ``(alpha,
+    l_T)`` of the coarse grid ``coarse`` refined by ``offsets``."""
     y = y.to(torch.float64)
-    lo, hi = 0.02, 0.98
-    coarse = torch.as_tensor(np.linspace(lo, hi, n_alphas), dtype=y.dtype,
-                             device=y.device)
     sse, _ = _ses_sweep(y, coarse)
     best = torch.argmin(sse, dim=0)
-    spacing = (hi - lo) / (n_alphas - 1)
-    offsets = torch.as_tensor(np.linspace(-spacing, spacing, n_refine),
-                              dtype=y.dtype, device=y.device)
-    fine = torch.clamp(coarse[best][None, :] + offsets[:, None], 1e-4,
-                       1.0 - 1e-6)
+    fine = torch.clamp(coarse[best][None, :] + offsets[:, None],
+                       *ALPHA_CLIP)
     sse_f, l_T_f = _ses_sweep(y, fine)
     best_f = torch.argmin(sse_f, dim=0)[None, :]
-    return (torch.take_along_dim(fine, best_f, dim=0)[0].to(dtype),
-            torch.take_along_dim(l_T_f, best_f, dim=0)[0].to(dtype))
+    return (torch.take_along_dim(fine, best_f, dim=0)[0],
+            torch.take_along_dim(l_T_f, best_f, dim=0)[0])
+
+
+def _ses_fit_kernel(y, coarse, offsets):
+    """The fit as two kernel launches on a CUDA device, one a sweep: the
+    coarse one writes each column's best index, the refined one builds
+    each column's points from it and writes alpha and ``l_T``.  A float32
+    or float64 series is read as it is; a half-precision one is widened
+    to float32, which is exact."""
+    T, p = y.shape
+    if y.dtype in (torch.float16, torch.bfloat16):
+        y = y.float()
+    y = y.contiguous()
+    with trace.span('ses', steps=T, grid=len(coarse), columns=p,
+                    route='kernel'):
+        best, _, _ = ses.ses_sweep(y, coarse)
+    with trace.span('ses', steps=T, grid=len(offsets), columns=p,
+                    route='kernel'):
+        _, alpha, level = ses.ses_sweep(y, coarse, best, offsets,
+                                        clip=ALPHA_CLIP)
+    return alpha, level
 
 
 def theta_forecast(field, steps, period=1, theta=20.0):

@@ -37,6 +37,7 @@ LINK_FLAGS = ['-ldl']
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_D = ctypes.c_double
 # C signature of every entry point: argtypes; restype int (a cudaError_t,
 # or a size for xmca_syrk_smem_bytes)
 _SIGNATURES = {
@@ -47,6 +48,8 @@ _SIGNATURES = {
     'xmca_surrogate_gram': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _U, _I, _P, _I, _P],
     'xmca_surrogate_project': [_P, _P, _I, _I, _I, _U, _I, _P],
+    'xmca_ses_sweep': [_P, _I, _I, _I, _P, _I, _P, _P, _D, _D, _P, _P, _P,
+                       _P, _P, _P],
 }
 
 _state = {'lib': None, 'log': ''}
