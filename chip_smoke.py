@@ -1699,7 +1699,6 @@ N_ENS = {'draw': 8, 'exact': 2, 'normal16': 8, 'normal32': 8,
          'rademacher': 8, 'rademacher1': 16}
 # runs of the +-1 null rotated to tol 1e-8, the 'draw' runs' reference
 N_REF_1E8 = 32
-N_INT8 = 4           # seeds of the int8 variant against the triangle Gram
 _KERNELS = ('syrk', 'sign_field_sums', 'surrogate_gram', 'surrogate_project',
             'surrogate_field', 'ses_sweep')
 
@@ -2005,56 +2004,6 @@ def fast_vs_exact(torch, card):
            .format(resolved.sum()))
     _check((sv_err[resolved] <= 1e-4).all(),
            'the fast and the exact spectra disagree')
-
-
-def int8_variant(torch):
-    """``fast_surrogate_variance_int8`` (full Gram by ``torch._int_mm``)
-    against ``fast_surrogate_variance_tri`` (the syrk kernel) at the same
-    seeds and the same draws, complexified, unrotated and rotated to the
-    f32 floor, at full width."""
-    import numpy as np
-    from xmca_tpu_torch.core.fastpath import (fast_surrogate_variance_int8,
-                                              fast_surrogate_variance_tri,
-                                              hilbert_operator, start_block)
-    from xmca_tpu_torch.ops import _build
-    from xmca_tpu_torch.stats.significance import run_seeds
-    n_vars = (N_LAT * N_LON, N_LAT * N_LON)
-    H = hilbert_operator(N_OBS, torch.float32, 'cuda')
-    errs, walls, launches = {}, {'int8': 0.0, 'tri': 0.0}, None
-    for rotated in (False, True):
-        kw = dict(H=H, complexify=True, rotated=rotated, n_rot=N_ROT,
-                  tol=1e-8, n_iter=6, polar_method='ns')
-        out = {'int8': [], 'tri': []}
-        for name, fn, extra in (
-                ('int8', fast_surrogate_variance_int8, {}),
-                ('tri', fast_surrogate_variance_tri, {'grade': 'exact'})):
-            if name == 'int8' and rotated:
-                _build.reset_launch_counts()
-            t0 = time.perf_counter()
-            for s in run_seeds(SEED, N_INT8):
-                omega = start_block(N_OBS, N_ROT, torch.complex64,
-                                    torch.Generator().manual_seed(s)
-                                    ).to('cuda')
-                var, total, conv, _ = fn(s, omega, N_OBS, n_vars, **kw,
-                                         **extra)
-                _check(conv, 'int8 variant check: a run did not converge')
-                out[name].append(np.r_[var.cpu().numpy(), float(total)])
-            torch.cuda.synchronize()
-            walls[name] += time.perf_counter() - t0
-            if name == 'int8' and rotated:
-                launches = _counts(_build.launch_counts())
-        errs[rotated] = float(np.abs(np.array(out['int8'])
-                                     / np.array(out['tri']) - 1).max())
-    print('int8 variant vs triangle Gram at {} x 2 x {}, {} seeds: rel '
-          'unrotated {:.2e} (tol 1e-4), rotated (tol 1e-8) {:.2e} (tol '
-          '1e-3); {:.4f} vs {:.4f} s/run; launches of {} rotated int8 runs '
-          '{}'.format(N_OBS, n_vars[0], N_INT8, errs[False], errs[True],
-                      walls['int8'] / (2 * N_INT8),
-                      walls['tri'] / (2 * N_INT8), N_INT8, launches))
-    _check(errs[False] <= 1e-4 and errs[True] <= 1e-3,
-           'the int8 variant and the triangle Gram disagree')
-    _check(launches['sign_field_sums'] == 2 * N_INT8 and launches['syrk'] == 0,
-           'the int8 variant launched {}'.format(launches))
 
 
 PROJECT_BLOCKS = 7   # column blocks the main width's back-projection is
@@ -2669,7 +2618,6 @@ def _wide_axis0_reference(torch, grams, p, H, n_iter):
     two folded Grams."""
     import numpy as np
     from xmca_tpu_torch.core import fastpath as fp
-    from xmca_tpu_torch.core.streaming import _fold_jitter
     from xmca_tpu_torch.stats.significance import _block_indices, run_seeds
     eps = fp._eps(torch.float32)
     svals, kappa = [], []
@@ -2677,11 +2625,10 @@ def _wide_axis0_reference(torch, grams, p, H, n_iter):
         gen = torch.Generator().manual_seed(s)
         idx = _block_indices(gen, N_OBS, BOOT_BLOCK, True).cuda()
         omega = fp.start_block(N_OBS, N_ROT, torch.float32, gen).cuda()
-        folded = [_fold_jitter(fp._center_gram(g), H, p, 1e-6, eps, True)
+        folded = [fp._fold_jitter(fp._center_gram(g), p, eps, H)
                   for g in (grams[0][idx][:, idx], grams[1])]
-        La, Lb = (fp._cholesky(f) for f in folded)
-        _, sv, _ = fp.subspace_svd(La.mH @ Lb / (N_OBS - 1), omega, k=N_ROT,
-                                   n_iter=n_iter)
+        sv = fp._chol_reduce(lambda: [fp._cholesky(f) for f in folded],
+                             N_OBS - 1, omega, N_ROT, n_iter)[4]
         svals.append(sv)
         ev = [torch.linalg.eigvalsh(f) for f in folded]
         kappa.append(max(float(e[-1] / e[0]) for e in ev))
@@ -2703,9 +2650,7 @@ def wide_stream_path(torch, card, peak_800mb):
     reference."""
     import numpy as np
     from xmca_tpu_torch.api.array import MCA
-    from xmca_tpu_torch.core import streaming as st
-    from xmca_tpu_torch.core.fastpath import (_eps, hilbert_operator,
-                                              start_block)
+    from xmca_tpu_torch.core import fastpath as fp
     walls = {}
     tile = WIDE_LAT * WIDE_LON
     p = WIDE_TILES * tile
@@ -2756,7 +2701,7 @@ def wide_stream_path(torch, card, peak_800mb):
                                            - WIDE_TILES * g)
                          / torch.linalg.norm(WIDE_TILES * g))
                    for k, g in zip(('left', 'right'), grams_b))
-    H = hilbert_operator(N_OBS, torch.float32, 'cuda')
+    H = fp.hilbert_operator(N_OBS, torch.float32, 'cuda')
     wide_boot_time(torch, ms, grams_b, gram_err, H, p, passes, gb, card)
     torch.cuda.reset_peak_memory_stats()
     _timed(torch, walls, 'rotate', lambda: ms.rotate(N_ROT))
@@ -2765,14 +2710,15 @@ def wide_stream_path(torch, card, peak_800mb):
     def reduction(grams):
         """The n x n reduction the streamed solve runs, of ``grams``:
         (singular values, totals, the folded Grams' condition numbers)."""
-        folded = [st._fold_jitter(g, H, p, 1e-6, _eps(torch.float32), True)
+        folded = [fp._fold_jitter(g, p, fp._eps(torch.float32), H)
                   for g in grams]
         gen = torch.Generator(device='cuda')
         gen.manual_seed(0)
-        omega = start_block(N_OBS, N_ROT, folded[0].dtype, gen)
-        _, _, _, s, _, tot = st._reduce_streamed(
-            folded[0], folded[1], omega, N_OBS - 1, N_ROT,
-            ms._subspace_iters, True)
+        omega = fp.start_block(N_OBS, N_ROT, folded[0].dtype, gen)
+        _, _, M, _, s, _ = fp._chol_reduce(
+            lambda: [fp._cholesky(f) for f in folded], N_OBS - 1, omega,
+            N_ROT, ms._subspace_iters)
+        tot = torch.stack([fp.nuclear_norm(M), torch.sum(torch.abs(M) ** 2)])
         ev = [torch.linalg.eigvalsh(f.to(torch.complex128)) for f in folded]
         return (s.cpu().numpy(), tot.cpu().numpy(),
                 max(float(e[-1] / e[0]) for e in ev))
@@ -3826,7 +3772,6 @@ def main():
     gen_small(torch)
     boot_small(torch)
     fast_vs_exact(torch, card)
-    int8_variant(torch)
     ensemble_small(torch)
     extend_small(torch)
     stream_small(torch)

@@ -11,9 +11,9 @@
   and complexified, with JAX's start block injected.  bf16 fields are
   centered with an f32 mean and contracted with f32 accumulation in both
   packages; f32 roundoff then separates them (tolerances below).
-* ``core.fastpath._int8_centered_gram`` against JAX's on an injected +-1
-  field, and ``fast_surrogate_variance_int8`` against the port's
-  triangle-Gram pipeline at the same seeds (the same draws).
+* ``core.fastpath.fast_surrogate_variance_tri`` on injected padded +-1
+  fields, its centering taken from the Gram, against the same tail fed
+  the Gram of the explicitly centered field.
 * ``MCA.rule_n``'s resolved configuration against the keyword arguments
   the JAX package's ``rule_n`` passes to ``rule_n_spectra`` (captured by
   a stand-in), with ``jax.default_backend`` patched to 'tpu' (every
@@ -178,46 +178,44 @@ def test_surrogate_variance_matches_jax(source, spectrum, cplx, rotated):
     np.testing.assert_allclose(float(tot_t), float(tot_j), rtol=rtol)
 
 
-# ---------------------------------------------------------- int8 variant
-def test_int8_centered_gram_matches_jax(monkeypatch):
-    """The raw Gram and the column means are exact integers in both
-    packages; the centered Gram and ``w = X mu`` are f32 sums.  The port
-    returns no f32 copy of the field: its ``w`` is summed over column
-    blocks of the field, here the default budget (one block) and 10
-    columns a block (9 blocks, the last 3 columns)."""
-    rng = np.random.default_rng(3)
-    X = np.where(rng.integers(0, 2, (37, 83)) == 1, 1, -1).astype(np.int8)
-    Gc_j, mu_j, _ = jfast._int8_centered_gram(jnp.asarray(X))
-    G = X.astype(np.int64) @ X.astype(np.int64).T
-    np.testing.assert_array_equal(tfast._int8_gram(_t(X)).numpy(), G)
-    for cols in (None, 10):
-        if cols is not None:
-            monkeypatch.setattr(tfast, '_PROJECT_BYTES', 4 * 37 * cols)
-        Gc_t, mu_t = tfast._int8_centered_gram(_t(X))
-        np.testing.assert_array_equal(mu_t.numpy(), np.asarray(mu_j))
-        assert Gc_t.dtype == torch.float32
-        np.testing.assert_allclose(Gc_t.numpy(), np.asarray(Gc_j), rtol=0,
-                                   atol=1e-6 * np.abs(G).max())
-
-
+# ------------------------------------------------- +-1 Gram centering
 @pytest.mark.parametrize('cplx', [False, True])
 @pytest.mark.parametrize('rotated', [False, True])
-def test_int8_variant_matches_tri(cplx, rotated):
-    """At the same seeds both draw the same +-1 fields; they differ only
-    in how the Gram is formed and centered (f32 roundoff), so with the
-    same jitter (grade 'exact') and a rotation to the f32 floor the
-    spectra agree to 1e-4."""
+def test_tri_centering_matches_centered_field(cplx, rotated):
+    """The triangle-Gram pipeline centers its +-1 fields from the raw
+    Gram alone (``w = G 1 / n``).  Its reference forms the float32 Gram
+    of each field explicitly centered, passes it through the same fold
+    and jitter and runs the same tail (``_surrogate_spectrum``, the same
+    start block, ``_pm1_project`` with the column means), so only the
+    centering differs: f32 roundoff, 1e-4 with the same jitter (grade
+    'exact') and a rotation to the f32 floor.  The fields are the draw
+    kernel's at each run's seeds (its plain version here), injected."""
+    from xmca_tpu_torch.ops.syrk import pad_to
+
     H = tfast.hilbert_operator(N, torch.float32) if cplx else None
     for s in tsig.run_seeds(3, 2):
+        fields, grams, mus = [], [], []
+        for i, p in enumerate((P_L, P_R)):
+            n_pad, p_pad = pad_to(N, p)
+            X, _ = tsur.sign_field_sums((2 * s + i) & 0xFFFFFFFF, N, p,
+                                        n_pad, p_pad, 'cpu')
+            fields.append(X)
+            Xf = X[:N, :p].to(torch.float32)
+            mu = Xf.mean(dim=0)
+            Xc = Xf - mu
+            grams.append(tfast._fold_jitter(Xc @ Xc.T, p, tfast._F32_EPS, H))
+            mus.append(mu)
         gen = torch.Generator().manual_seed(s)
         omega = tfast.start_block(
             N, K, torch.complex64 if cplx else torch.float32, gen)
-        kw = dict(H=H, complexify=cplx, rotated=rotated, n_rot=K, tol=1e-8,
-                  n_iter=6, polar_method='ns')
-        got = tfast.fast_surrogate_variance_int8(s, omega, N, (P_L, P_R),
-                                                 **kw)
-        ref = tfast.fast_surrogate_variance_tri(s, omega, N, (P_L, P_R),
-                                                grade='exact', **kw)
+        kw = dict(n_rot=K, power=1, tol=1e-8, n_iter=6, polar_method='ns')
+        got = tfast.fast_surrogate_variance_tri(
+            s, omega, N, (P_L, P_R), H=H, complexify=cplx, rotated=rotated,
+            grade='exact', fields=fields, **kw)
+        ref = tfast._surrogate_spectrum(
+            grams, mus,
+            lambda i, S: tfast._pm1_project(fields[i], S, (P_L, P_R)[i]),
+            N, (P_L, P_R), H, rotated, omega, **kw)
         assert got[2] and ref[2]
         np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(),
                                    rtol=1e-4)

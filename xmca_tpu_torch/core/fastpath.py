@@ -85,6 +85,16 @@ def _jitter(G, p, jitter_rel, input_eps=None):
     return G + delta * eye
 
 
+def _fold_jitter(G, p, input_eps, H=None, jitter_rel=1e-6):
+    """The Gram step of the n x n tail, for every route: the analytic
+    fold of a real temporal Gram when ``H`` is given
+    (:func:`_analytic_fold`), then the rank jitter at the contracted width
+    ``p`` and the input precision ``input_eps`` (:func:`_jitter`)."""
+    if H is not None:
+        G = _analytic_fold(G, H)
+    return _jitter(G, p, jitter_rel, input_eps=input_eps)
+
+
 def hilbert_imag_matrix(n, dtype=np.float64):
     """The real n x n matrix H with ``analytic(x) = x + i H x``, on the
     host: the imaginary part of ``ifft(diag(h) fft(I))`` in float64, as
@@ -132,38 +142,29 @@ def _analytic_fold(G, H):
 
 def analytic_temporal_gram(X, H, jitter_rel=1e-6):
     """Jittered temporal Gram of ``analytic(X)`` from real ``X`` (f32 from
-    a bf16 ``X``); summed over the space shards of a
-    :func:`~xmca_tpu_torch.parallel.mesh.space_context`."""
-    G = _mesh.space_sum(_data_dot(X, X.T))
-    GZ = _analytic_fold(G, H)
-    return _jitter(GZ, _mesh.space_total(X.shape[1], X.device), jitter_rel,
-                   input_eps=_eps(X.dtype))
+    a bf16 ``X``), of ``X`` itself where ``H`` is None; summed over the
+    space shards of a :func:`~xmca_tpu_torch.parallel.mesh.space_context`."""
+    G = _mesh.space_sum(_data_dot(X, X.mH))
+    return _fold_jitter(G, _mesh.space_total(X.shape[1], X.device),
+                        _eps(X.dtype), H, jitter_rel)
 
 
-@trace.spanned('gram', route='data')
 def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
-    """Chol-reduced kernel of the complexified fields, ``(M, La, Lb)``."""
-    dof = Xl.shape[0] - 1
-    La = _cholesky(analytic_temporal_gram(Xl, H, jitter_rel))
-    Lb = _cholesky(analytic_temporal_gram(Xr, H, jitter_rel))
-    return (La.mH @ Lb) / dof, La, Lb
+    """Chol-reduced kernel of the complexified fields (of the fields as
+    given where ``H`` is None), ``(M, La, Lb)``."""
+    La, Lb, M = _data_reduce(Xl, Xr, H, None, 0, 0, jitter_rel)[:3]
+    return M, La, Lb
 
 
 def temporal_gram(X, jitter_rel=1e-6):
     """Jittered temporal Gram ``X X^H + eps I`` (f32 from a bf16 ``X``);
     summed over the space shards of a space context."""
-    G = _mesh.space_sum(_data_dot(X, X.mH))
-    return _jitter(G, _mesh.space_total(X.shape[1], X.device), jitter_rel,
-                   input_eps=_eps(X.dtype))
+    return analytic_temporal_gram(X, None, jitter_rel)
 
 
-@trace.spanned('gram', route='data')
 def reduced_kernel(Xl, Xr, jitter_rel=1e-6):
     """n x n matrix with the singular values of ``Xl^H Xr / dof``."""
-    dof = Xl.shape[0] - 1
-    La = _cholesky(temporal_gram(Xl, jitter_rel))
-    Lb = _cholesky(temporal_gram(Xr, jitter_rel))
-    return (La.mH @ Lb) / dof, La, Lb
+    return analytic_reduced_kernel(Xl, Xr, None, jitter_rel)
 
 
 def _center_gram(G):
@@ -176,15 +177,11 @@ def _center_gram(G):
 
 def centered_factor(G, p, input_eps, H=None, jitter_rel=1e-6):
     """Lower Cholesky factor of the jittered temporal Gram of a field's
-    rows re-centered, from their Gram ``G``: :func:`_center_gram`, the
-    analytic fold when ``H`` is given, the jitter at the width ``p`` and
-    the input precision ``input_eps``; the factor
-    :func:`analytic_reduced_kernel` or :func:`reduced_kernel` takes of
-    the centered rows themselves."""
-    Gc = _center_gram(G)
-    if H is not None:
-        Gc = _analytic_fold(Gc, H)
-    return _cholesky(_jitter(Gc, p, jitter_rel, input_eps=input_eps))
+    rows re-centered, from their Gram ``G``: :func:`_center_gram`, then
+    :func:`_fold_jitter` and the factor the data route takes of the
+    centered rows themselves."""
+    return _cholesky(_fold_jitter(_center_gram(G), p, input_eps, H,
+                                  jitter_rel))
 
 
 def _orthonormalize(Y, method='qr'):
@@ -260,13 +257,30 @@ def nuclear_norm_surrogate(M):
     return torch.real(torch.trace(W.mH @ M))
 
 
-def _kernel_svd_recovery(M, La, Lb, omega, n_modes, n_iter):
-    """Subspace SVD of the reduced kernel + triangular recovery of the
-    temporal weight stacks ``Z = L^-H U``."""
-    U, s, V = subspace_svd(M, omega, k=n_modes, n_iter=n_iter)
-    Zl = torch.linalg.solve_triangular(La.mH, U, upper=True)
-    Zr = torch.linalg.solve_triangular(Lb.mH, V, upper=True)
-    return s, Zl, Zr
+def _chol_reduce(factors, dof, omega, k, n_iter, **gram):
+    """The reduction of the n x n tail, for every route.
+
+    ``factors()`` returns the lower Cholesky factors ``(La, Lb)`` of the
+    two sides' jittered temporal Grams; they and the reduced kernel ``M =
+    La^H Lb / dof`` are one ``gram`` span with the route's attributes
+    ``gram``.  The subspace SVD of ``M`` from the start block ``omega``
+    follows (none where ``omega`` is None).  Returns ``(La, Lb, M, U, s,
+    V)``; a caller takes the totals it needs from ``M``.
+    """
+    with trace.span('gram', **gram):
+        La, Lb = factors()
+        M = (La.mH @ Lb) / dof
+    if omega is None:
+        return La, Lb, M, None, None, None
+    return (La, Lb, M) + subspace_svd(M, omega, k=k, n_iter=n_iter)
+
+
+def _recover(L, T_side, H=None):
+    """The recovery of the n x n tail, for every route: ``L^-H T`` of one
+    side's factor ``L`` and singular vectors ``T_side``; with ``H``, the
+    real stack :func:`analytic_projection_stack` of it."""
+    T = torch.linalg.solve_triangular(L.mH, T_side, upper=True)
+    return T if H is None else analytic_projection_stack(T, H)
 
 
 def analytic_projection_stack(T, H):
@@ -284,33 +298,47 @@ def combine_analytic_projection(P):
     return torch.complex(P[:, :k], P[:, k:])
 
 
-@trace.spanned('project')
-def _analytic_spatial_vectors(X, H, T):
-    """``V = Z^H T`` for ``Z = (I + iH) X`` without materializing Z."""
-    return combine_analytic_projection(
-        _data_dot(X.T, analytic_projection_stack(T, H)))
+def _data_reduce(Xl, Xr, H, omega, k, n_iter, jitter_rel):
+    """The data route into the tail: each field's jittered temporal Gram
+    (folded with ``H``, :func:`analytic_temporal_gram`) and its factor,
+    then :func:`_chol_reduce`."""
+    def factors():
+        return tuple(_cholesky(analytic_temporal_gram(X, H, jitter_rel))
+                     for X in (Xl, Xr))
+
+    return _chol_reduce(factors, Xl.shape[0] - 1, omega, k, n_iter,
+                        route='data')
+
+
+def _spatial_vectors(X, L, T_side, H=None):
+    """``V = X^H (L^-H T)`` of a field as given; with ``H``, ``Z^H (L^-H
+    T)`` of ``Z = (I + iH) X`` without materializing Z, a ``project``
+    span."""
+    if H is None:
+        return _data_dot(X.mH, _recover(L, T_side))
+    with trace.span('project'):
+        return combine_analytic_projection(
+            _data_dot(X.mH, _recover(L, T_side, H)))
 
 
 def fast_solve_truncated_totals(Xl, Xr, omega, n_modes, n_iter=8,
                                 jitter_rel=1e-6):
     """Leading-n_modes solve + exact totals:
     ``(s, V_left, V_right, total_cov, total_sq)``."""
-    M, La, Lb = reduced_kernel(Xl, Xr, jitter_rel)
-    s, Zl, Zr = _kernel_svd_recovery(M, La, Lb, omega, n_modes, n_iter)
-    return (s, Xl.mH @ Zl, Xr.mH @ Zr, nuclear_norm(M),
-            torch.sum(torch.abs(M) ** 2))
+    return fast_solve_truncated_totals_analytic(Xl, Xr, None, omega, n_modes,
+                                                n_iter, jitter_rel)
 
 
 def fast_solve_truncated_totals_analytic(Xl, Xr, H, omega, n_modes,
                                          n_iter=8, jitter_rel=1e-6):
     """Truncated solve of the COMPLEXIFIED fields from real data (the
-    analytic fold); same contract as :func:`fast_solve_truncated_totals`
-    applied to ``analytic(Xl), analytic(Xr)``."""
-    M, La, Lb = analytic_reduced_kernel(Xl, Xr, H, jitter_rel)
-    s, Zl, Zr = _kernel_svd_recovery(M, La, Lb, omega, n_modes, n_iter)
-    return (s, _analytic_spatial_vectors(Xl, H, Zl),
-            _analytic_spatial_vectors(Xr, H, Zr), nuclear_norm(M),
-            torch.sum(torch.abs(M) ** 2))
+    analytic fold; the fields as given where ``H`` is None); same
+    contract as :func:`fast_solve_truncated_totals` applied to
+    ``analytic(Xl), analytic(Xr)``."""
+    La, Lb, M, U, s, V = _data_reduce(Xl, Xr, H, omega, n_modes, n_iter,
+                                      jitter_rel)
+    return (s, _spatial_vectors(Xl, La, U, H), _spatial_vectors(Xr, Lb, V, H),
+            nuclear_norm(M), torch.sum(torch.abs(M) ** 2))
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +369,16 @@ def _rotated_variance(Vl, Vr, s, power, tol, polar_method, space=None):
         torch.isfinite(variance).all(), 'variance.finite', bool), n_it)
 
 
+def _rotated_of(Xl, Xr, H, omega, n_rot, power, tol, n_iter, jitter_rel,
+                bivariate, polar_method):
+    La, Lb, M, U, s, V = _data_reduce(Xl, Xr, H, omega, n_rot, n_iter,
+                                      jitter_rel)
+    Vl = _spatial_vectors(Xl, La, U, H)
+    Vr = _spatial_vectors(Xr, Lb, V, H) if bivariate else None
+    var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
+    return var, conv
+
+
 def fast_rotated_variance_analytic(Xl, Xr, H, omega, n_rot, power=1,
                                    tol=1e-8, n_iter=8, jitter_rel=1e-6,
                                    bivariate=True, polar_method='ns'):
@@ -350,24 +388,16 @@ def fast_rotated_variance_analytic(Xl, Xr, H, omega, n_rot, power=1,
     Returns ``(variance, converged)``."""
     if Xr is None or not bivariate:
         Xr = Xl
-    M, La, Lb = analytic_reduced_kernel(Xl, Xr, H, jitter_rel)
-    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
-    Tl = torch.linalg.solve_triangular(La.mH, U, upper=True)
-    Vl = _analytic_spatial_vectors(Xl, H, Tl)
-    Vr = None
-    if bivariate:
-        Tr = torch.linalg.solve_triangular(Lb.mH, V, upper=True)
-        Vr = _analytic_spatial_vectors(Xr, H, Tr)
-    var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
-    return var, conv
+    return _rotated_of(Xl, Xr, H, omega, n_rot, power, tol, n_iter,
+                       jitter_rel, bivariate, polar_method)
 
 
 def fast_spectrum_analytic(Xl, Xr, H, omega, k, n_iter=8, with_nuclear=True,
                            jitter_rel=1e-6):
-    """Top-k complexified kernel spectrum from real fields and its total
-    (the surrogate-schedule nuclear norm, or the sum of the k values)."""
-    M, _, _ = analytic_reduced_kernel(Xl, Xr, H, jitter_rel)
-    _, s, _ = subspace_svd(M, omega, k=k, n_iter=n_iter)
+    """Top-k complexified kernel spectrum from real fields (of the fields
+    as given where ``H`` is None) and its total (the surrogate-schedule
+    nuclear norm, or the sum of the k values)."""
+    _, _, M, _, s, _ = _data_reduce(Xl, Xr, H, omega, k, n_iter, jitter_rel)
     return s, nuclear_norm_surrogate(M) if with_nuclear else torch.sum(s)
 
 
@@ -375,9 +405,8 @@ def fast_spectrum(Xl, Xr, omega, k, n_iter=8, with_nuclear=True,
                   jitter_rel=1e-6):
     """Top-k singular values of the MCA kernel and its total, as
     :func:`fast_spectrum_analytic` on the fields as given."""
-    M, _, _ = reduced_kernel(Xl, Xr, jitter_rel)
-    _, s, _ = subspace_svd(M, omega, k=k, n_iter=n_iter)
-    return s, nuclear_norm_surrogate(M) if with_nuclear else torch.sum(s)
+    return fast_spectrum_analytic(Xl, Xr, None, omega, k, n_iter,
+                                  with_nuclear, jitter_rel)
 
 
 def fast_rotated_variance(Xl, Xr, omega, n_rot, power=1, tol=1e-8, n_iter=8,
@@ -386,23 +415,14 @@ def fast_rotated_variance(Xl, Xr, omega, n_rot, power=1, tol=1e-8, n_iter=8,
     """Rotated variance spectrum of the fields as given (real or
     complex), with spatial vectors ``V = X^H (L^-H U)``; returns
     ``(variance, converged)``."""
-    if Xr is None:
-        Xr = Xl
-    M, La, Lb = reduced_kernel(Xl, Xr, jitter_rel)
-    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
-    Vl = _data_dot(Xl.mH, torch.linalg.solve_triangular(La.mH, U,
-                                                        upper=True))
-    Vr = None
-    if bivariate:
-        Vr = _data_dot(Xr.mH, torch.linalg.solve_triangular(Lb.mH, V,
-                                                            upper=True))
-    var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
-    return var, conv
+    return _rotated_of(Xl, Xl if Xr is None else Xr, None, omega, n_rot,
+                       power, tol, n_iter, jitter_rel, bivariate,
+                       polar_method)
 
 
-# the most bytes of f32 that a +-1 field's back-projection (or the int8
-# variant's ``X mu``) casts at once: the JAX package casts inside the
-# contraction, so no f32 copy of a whole field may exist here
+# the most bytes of f32 that a +-1 field's back-projection casts at
+# once: the JAX package casts inside the contraction, so no f32 copy of a
+# whole field may exist here
 _PROJECT_BYTES = 1 << 30
 
 
@@ -437,22 +457,15 @@ def _pm1_project(X, S, p):
     return out
 
 
-def _fold_jitter(Gc, p, H, complexify, jitter_rel):
-    """Analytic fold (when complexified) and jitter of a centered
-    surrogate Gram accumulated from f32-exact draws."""
-    Gz = _analytic_fold(Gc, H) if complexify else Gc
-    return _jitter(Gz, p, jitter_rel, input_eps=_F32_EPS)
-
-
-def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, complexify,
-                        rotated, omega, n_rot, power, tol, n_iter,
-                        polar_method):
+def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, rotated,
+                        omega, n_rot, power, tol, n_iter, polar_method):
     """The n x n tail of one Rule-N surrogate solve, shared by the +-1
     and the generated pipelines.
 
     ``grams[i]`` is field i's jittered (folded) Gram, ``mus[i]`` its
     column means (p_i,), and ``project(i, S)`` returns ``X_i^T S``
-    (p_i, m) f32 for the raw field i.  Cholesky, the reduced kernel and
+    (p_i, m) f32 for the raw field i; ``H`` is the f32 Hilbert operator
+    of complexified fields, else None.  Cholesky, the reduced kernel and
     the subspace SVD; unrotated, the spectrum and its NS nuclear-norm
     total; rotated, the centered back-projection of the loadings and
     promax in the space :func:`ensemble_space` picks.  Returns
@@ -461,28 +474,22 @@ def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, complexify,
     from xmca_tpu_torch.core.rotation import ensemble_space
 
     bivariate = len(n_vars) == 2
-    dof = n_obs - 1
-    with trace.span('gram'):
-        La = _cholesky(grams[0])
-        Lb = _cholesky(grams[1]) if bivariate else La
-        M = (La.mH @ Lb) / dof
 
+    def factors():
+        La = _cholesky(grams[0])
+        return La, _cholesky(grams[1]) if bivariate else La
+
+    La, Lb, M, U, s, V = _chol_reduce(factors, n_obs - 1, omega, n_rot,
+                                      n_iter)
     if not rotated:
-        _, s, _ = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
         return (s, nuclear_norm_surrogate(M),
                 trace.to_host(torch.isfinite(s).all(), 'variance.finite',
                               bool), 0)
 
-    U, s, V = subspace_svd(M, omega, k=n_rot, n_iter=n_iter)
-
     def spatial(i, L_chol, T_side):
-        T = torch.linalg.solve_triangular(L_chol.mH, T_side, upper=True)
-        if complexify:
-            S = analytic_projection_stack(T, H).to(torch.float32)
-        else:
-            S = T.real.to(torch.float32)
+        S = _recover(L_chol, T_side, H).to(torch.float32)
         P = project(i, S) - mus[i][:, None] * torch.sum(S, dim=0)[None, :]
-        return combine_analytic_projection(P) if complexify else P
+        return P if H is None else combine_analytic_projection(P)
 
     Vl = spatial(0, La, U)
     Vr = spatial(1, Lb, V) if bivariate else None
@@ -526,8 +533,7 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
         jitter_rel = max(jitter_rel, 2e-3)
     elif grade != 'exact':
         raise ValueError("grade must be 'exact' or 'fast'")
-    if complexify:
-        H = H.to(device=device, dtype=torch.float32)
+    H = H.to(device=device, dtype=torch.float32) if complexify else None
 
     grams, mus, Xs = [], [], []
     for i, p in enumerate(n_vars):
@@ -548,7 +554,7 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
             G = syrk(X, pm1=True)[:n_obs, :n_obs]
             w = torch.sum(G, dim=1) / n_obs
             Gc = G - w[:, None] - w[None, :] + torch.sum(w) / n_obs
-            grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
+            grams.append(_fold_jitter(Gc, p, _F32_EPS, H, jitter_rel))
         mus.append(colsum[:p].to(torch.float32) / n_obs)
         Xs.append(X)
 
@@ -556,86 +562,8 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
         return _pm1_project(Xs[i], S, n_vars[i])
 
     return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
-                               complexify, rotated, omega, n_rot, power,
-                               tol, n_iter, polar_method)
-
-
-def _int8_gram(X):
-    """Exact int32 Gram ``X X^T`` of an (n, p) int8 field with
-    ``torch._int_mm``; the field is zero-padded to the shapes the card's
-    int8 product takes (rows a multiple of 8 and above 16, columns a
-    multiple of 8), which leaves the (n, n) block unchanged."""
-    n, p = X.shape
-    n_p, p_p = max(-(-n // 8) * 8, 24), -(-p // 8) * 8
-    if (n_p, p_p) != (n, p):
-        Xp = X.new_zeros((n_p, p_p))
-        Xp[:n, :p] = X
-        X = Xp
-    X = X.contiguous()
-    return torch._int_mm(X, X.T)[:n, :n]
-
-
-def _int8_centered_gram(X):
-    """Exactly-centered temporal Gram of a +-1 int8 field ``X (n, p)``.
-
-    The raw Gram is one int8 x int8 -> int32 product (exact;
-    :func:`_int8_gram`), the column means come from exact int32 sums,
-    and centering is the rank-1 identity ``Gc = G - w 1^T - 1 w^T +
-    mu.mu`` with ``w = X mu`` in f32, summed over the column blocks of
-    :func:`_pm1_blocks`.  Returns ``(Gc f32, mu f32)``.
-    """
-    n = X.shape[0]
-    G = _int8_gram(X).to(torch.float32)
-    mu = X.sum(dim=0, dtype=torch.int32).to(torch.float32) / n
-    w = torch.zeros(n, dtype=torch.float32, device=X.device)
-    for c0, block in _pm1_blocks(X, X.shape[1]):
-        w += block @ mu[c0:c0 + block.shape[1]]
-    Gc = G - w[:, None] - w[None, :] + torch.sum(mu * mu)
-    return Gc, mu
-
-
-def fast_surrogate_variance_int8(seed, omega, n_obs, n_vars, H=None,
-                                 complexify=False, rotated=False, n_rot=10,
-                                 power=1, tol=1e-8, n_iter=8,
-                                 jitter_rel=1e-6, polar_method='ns'):
-    """One Rule-N surrogate solve from +-1 int8 fields with a full Gram
-    (the JAX package's ``fast_surrogate_variance_int8``, its pipeline for
-    'rademacher8'/'rademacher1' draws off the TPU).
-
-    The fields are :func:`fast_surrogate_variance_tri`'s (the draw
-    kernel, seed ``2 * seed + i`` mod 2^32), so at the same seed the two
-    differ only in how the Gram is formed: here the whole ``X X^T`` by
-    ``torch._int_mm`` and centering from ``X mu``
-    (:func:`_int8_centered_gram`), there the lower triangle by the syrk
-    kernel and centering from the Gram itself.  No public path runs this
-    variant: the port runs the JAX package's accelerator configuration,
-    which is the triangle Gram, on every device.
-
-    Returns ``(variance, total, converged, n_iter_rot)`` as
-    :func:`fast_surrogate_variance_tri` does.
-    """
-    from xmca_tpu_torch.ops.surrogate import sign_field_sums
-    from xmca_tpu_torch.ops.syrk import pad_to
-
-    device = omega.device
-    if complexify:
-        H = H.to(device=device, dtype=torch.float32)
-    grams, mus, Xs = [], [], []
-    for i, p in enumerate(n_vars):
-        n_pad, p_pad = pad_to(n_obs, p)
-        X, _ = sign_field_sums((2 * int(seed) + i) & 0xFFFFFFFF, n_obs, p,
-                               n_pad, p_pad, device)
-        Gc, mu = _int8_centered_gram(X[:n_obs, :p])
-        grams.append(_fold_jitter(Gc, p, H, complexify, jitter_rel))
-        mus.append(mu)
-        Xs.append(X)
-
-    def project(i, S):
-        return _pm1_project(Xs[i], S, n_vars[i])
-
-    return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
-                               complexify, rotated, omega, n_rot, power,
-                               tol, n_iter, polar_method)
+                               rotated, omega, n_rot, power, tol, n_iter,
+                               polar_method)
 
 
 def fast_surrogate_variance_gen(seed, omega, n_obs, n_vars, H=None,
@@ -672,8 +600,7 @@ def fast_surrogate_variance_gen(seed, omega, n_obs, n_vars, H=None,
 
     device = omega.device
     seeds = [(2 * int(seed) + i) & 0xFFFFFFFF for i in range(len(n_vars))]
-    if complexify:
-        H = H.to(device=device, dtype=torch.float32)
+    H = H.to(device=device, dtype=torch.float32) if complexify else None
 
     grams, mus = [], []
     for i, p in enumerate(n_vars):
@@ -684,8 +611,8 @@ def fast_surrogate_variance_gen(seed, omega, n_obs, n_vars, H=None,
                              .format(i, (n_obs, p)))
         else:
             G, mu, u, mumu = gram_from_field(fields[i])
-        grams.append(_fold_jitter(centered_gram_from_raw(G, u, mumu), p, H,
-                                  complexify, jitter_rel))
+        grams.append(_fold_jitter(centered_gram_from_raw(G, u, mumu), p,
+                                  _F32_EPS, H, jitter_rel))
         mus.append(mu)
 
     def project(i, S):
@@ -695,5 +622,5 @@ def fast_surrogate_variance_gen(seed, omega, n_obs, n_vars, H=None,
         return project_from_field(fields[i], S)
 
     return _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H,
-                               complexify, rotated, omega, n_rot, power,
-                               tol, n_iter, polar_method)
+                               rotated, omega, n_rot, power, tol, n_iter,
+                               polar_method)

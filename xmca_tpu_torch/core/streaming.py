@@ -278,41 +278,6 @@ def _project_chunk_ext(c, Zw, A, Ap, w, normalize, extend, period):
     return P
 
 
-def _recovery_weights_ext(L_chol, T_side):
-    """Complex ``(n, k)`` recovery matrix ``L^-H T`` of an extended solve
-    (the data itself is complex: no fold)."""
-    return torch.linalg.solve_triangular(L_chol.mH, T_side, upper=True)
-
-
-def _recovery_weights(L_chol, T_side, H, complexify):
-    """Real recovery matrix: ``(n, 2k)`` ``[Re S, Im S]`` of ``S = T - i
-    H^T T`` for analytic solves, ``(n, k)`` ``T`` otherwise."""
-    T = torch.linalg.solve_triangular(L_chol.mH, T_side, upper=True)
-    return (_fast.analytic_projection_stack(T, H) if complexify
-            else T.real)
-
-
-def _fold_jitter(G, H, p, jitter_rel, eps, complexify):
-    """Analytic fold (complexified, no extension) and the rank jitter of
-    a streamed Gram; the jitter floor scales with the kept width ``p``."""
-    if complexify:
-        G = _fast._analytic_fold(G, H)
-    return _fast._jitter(G, p, jitter_rel, input_eps=eps)
-
-
-def _reduce_streamed(Gl, Gr, omega, dof, n_modes, n_iter, bivariate):
-    """Cholesky reduction, subspace SVD and exact totals:
-    ``(La, Lb, U, s, V, totals)``, ``totals`` the nuclear norm and the
-    squared Frobenius norm of the reduced kernel."""
-    La = _fast._cholesky(Gl)
-    Lb = _fast._cholesky(Gr) if bivariate else La
-    M = (La.mH @ Lb) / dof
-    U, s, V = _fast.subspace_svd(M, omega, k=n_modes, n_iter=n_iter)
-    totals = torch.stack([_fast.nuclear_norm(M),
-                          torch.sum(torch.abs(M) ** 2)])
-    return La, Lb, U, s, V, totals
-
-
 def _fields_chunk(c, w, H, inv_w, complexify, normalize, original, extend,
                   period):
     """One chunk of the ``fields()`` view: the preprocessed (and
@@ -453,24 +418,28 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
         if complexify and not extend and H is None:
             # one Hilbert operator for both fields
             H = _fast.hilbert_operator(n_obs, dtype, device)
-        return _fold_jitter(G, H, p, jitter_rel, _fast._eps(dtype),
-                            complexify and not extend)
+        # the analytic fold (H) only where the chunks were not complexified
+        return _fast._fold_jitter(G, p, _fast._eps(dtype), H, jitter_rel)
 
     Gl = field_gram(chunks_left, 'left')
     Gr = field_gram(chunks_right, 'right') if bivariate else Gl
 
+    def factors():
+        La = _fast._cholesky(Gl)
+        return La, _fast._cholesky(Gr) if bivariate else La
+
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     omega = _fast.start_block(n_obs, n_modes, Gl.dtype, gen)
-    La, Lb, U, s, V, totals = _reduce_streamed(
-        Gl, Gr, omega, n_obs - 1, n_modes, n_iter, bivariate)
-    del Gl, Gr
+    La, Lb, M, U, s, V = _fast._chol_reduce(factors, n_obs - 1, omega,
+                                            n_modes, n_iter)
+    totals = torch.stack([_fast.nuclear_norm(M), torch.sum(torch.abs(M) ** 2)])
+    del Gl, Gr, M
 
     def recover(loader, L_chol, T_side, keep, side):
-        if extend:
-            Z = _recovery_weights_ext(L_chol, T_side)
-        else:
-            Z = _recovery_weights(L_chol, T_side, H, complexify).to(dtype)
+        # the real recovery matrix, the analytic [Re, Im] stack where
+        # folded; an extended solve's complex one
+        Z = _fast._recover(L_chol, T_side, H)
         A = torch.zeros((n_obs, Z.shape[1]), dtype=Z.dtype, device=device)
         A_pre = torch.zeros_like(A) if extend else None
         parts, off = [], 0

@@ -532,12 +532,63 @@ def bootstrap_spectra(fields, n_runs, n_out_modes, *, axis=0, on_left=True,
     return rows[:, :-1], rows[:, -1] > 0.5
 
 
+def _resample_weights(L, T_side, H, dtype, idx=None):
+    """One side's projection weights of a resample: ``Z = L^-H T`` (the
+    analytic stack with ``H``, ``core.fastpath._recover``) in ``dtype``,
+    centered (``C Z``) and, with the rows ``idx`` of a time resample,
+    scattered to ``P^T C Z``: each duplicated draw adds its row."""
+    Z = _fast._recover(L, T_side, H).to(dtype)
+    Y = Z - Z.mean(dim=0)
+    if idx is None:
+        return Y
+    return torch.zeros_like(Y).index_add_(0, idx, Y)
+
+
+def _time_resample_runs(grams, pool, widths, eps, H, k, n_iter, dtype):
+    """The Gram-space time resample of the in-memory bootstrap
+    (:func:`_stored_runs`) and the chunk-backed one
+    (:mod:`xmca_tpu_torch.stats.streaming_boot`).
+
+    ``grams``: the fields' Grams as given (one for a univariate model);
+    ``pool``: the sides a run resamples; ``widths``, ``eps``: the sides'
+    widths and input precision; ``H``: the Hilbert operator of the
+    analytic fold, None for fields solved as given.  Factors the sides no
+    run resamples now and returns ``run(idx, omega, finish)``: the factor
+    of ``C G[idx][:, idx] C`` for the rows ``idx``, the reduction for
+    ``k`` modes from ``omega`` (``route='stored'``), then ``finish(s,
+    weight)`` while the run's n x n state is alive; ``weight(i)`` makes
+    side i's :func:`_resample_weights` in ``dtype``.
+    """
+    fixed = [None if i in pool else _fast.centered_factor(G, w, eps, H)
+             for i, (G, w) in enumerate(zip(grams, widths))]
+    dof = grams[0].shape[0] - 1
+
+    def run(idx, omega, finish):
+        def factors():
+            Ls = [_fast.centered_factor(grams[i][idx][:, idx], widths[i],
+                                        eps, H) if L is None else L
+                  for i, L in enumerate(fixed)]
+            return Ls[0], Ls[-1]
+
+        La, Lb, M, U, s, V = _fast._chol_reduce(factors, dof, omega, k,
+                                                n_iter, route='stored')
+
+        def weight(i):
+            return _resample_weights((La, Lb)[i], (U, V)[i], H, dtype,
+                                     idx if fixed[i] is None else None)
+
+        return finish(s, weight)
+
+    return run
+
+
 def _stored_runs(fields, pool, draw_rows, start, k, H, rotated, power, tol,
                  subspace_iters):
     """The run of :func:`bootstrap_spectra`'s stored route: forms each
     field's Gram now (a ``gram`` span of the call, outside its runs) and
-    factors every side no run resamples; returns ``run(gen)`` ->
-    ``(variance, converged)`` of one time resample drawn from ``gen``.
+    factors every side no run resamples (:func:`_time_resample_runs`);
+    returns ``run(gen)`` -> ``(variance, converged)`` of one time
+    resample drawn from ``gen``.
 
     ``draw_rows(gen)`` and ``start(gen)`` draw a run's block indices
     (None where ``pool`` is empty) and its start block for ``k`` modes;
@@ -546,46 +597,33 @@ def _stored_runs(fields, pool, draw_rows, start, k, H, rotated, power, tol,
     sides.
     """
     sides = fields[:2]
-    n_obs = sides[0].shape[0]
-
-    def factor(i, idx=None):
-        G = grams[i] if idx is None else grams[i][idx][:, idx]
-        return _fast.centered_factor(G, widths[i],
-                                     _fast._eps(sides[i].dtype), H)
 
     with trace.span('gram', route='stored'):
         grams = [_mesh.space_sum(_fast._data_dot(f, f.mH)) for f in sides]
         widths = [_mesh.space_total(f.shape[1], f.device) for f in sides]
-        fixed = [None if i in pool else factor(i)
-                 for i in range(len(sides))]
+        time_run = _time_resample_runs(grams, pool, widths,
+                                       _fast._eps(sides[0].dtype), H, k,
+                                       subspace_iters, sides[0].dtype)
 
     @trace.spanned('project')
-    def back_project(i, T, idx):
-        """``(C P X_i)^T S`` of the recovery ``T`` as ``X_i^T (P^T C
-        S)``, ``S`` the analytic stack of ``T`` when folded."""
-        S = T if H is None else _fast.analytic_projection_stack(T, H)
-        Y = S - S.mean(dim=0)
-        if i in pool:
-            Y = torch.zeros_like(Y).index_add_(0, idx, Y)
-        V = _fast._data_dot(sides[i].mH, Y)
+    def back_project(i, weight):
+        """``(C P X_i)^T S`` as ``X_i^T (P^T C S)``, the weights ``P^T C
+        S`` of side i made here."""
+        V = _fast._data_dot(sides[i].mH, weight(i))
         return V if H is None else _fast.combine_analytic_projection(V)
 
-    def run(gen):
-        idx = draw_rows(gen)
-        omega = start(gen)
-        with trace.span('gram', route='stored'):
-            Ls = [factor(i, idx) if L is None else L
-                  for i, L in enumerate(fixed)]
-            M = (Ls[0].mH @ Ls[-1]) / (n_obs - 1)
-        U, s, V = _fast.subspace_svd(M, omega, k=k, n_iter=subspace_iters)
+    def finish(s, weight):
         if not rotated:
             return s, True
-        Vs = [back_project(i, torch.linalg.solve_triangular(
-                  L.mH, T, upper=True), idx)
-              for i, (L, T) in enumerate(zip(Ls, (U, V)))]
+        Vs = [back_project(i, weight) for i in range(len(sides))]
         var, conv, _ = _fast._rotated_variance(
             Vs[0], Vs[1] if len(Vs) == 2 else None, s, power, tol,
             'ns-gated')
         return var, conv
+
+    def run(gen):
+        idx = draw_rows(gen)
+        omega = start(gen)
+        return time_run(idx, omega, finish)
 
     return run

@@ -5,11 +5,10 @@ model's data never sits whole on the device, so its bootstrap cannot
 resample the data; it resamples the Grams the streamed solve stored.
 The in-memory bootstrap
 (:func:`xmca_tpu_torch.stats.significance.bootstrap_spectra`) runs the
-same time-axis algebra on Grams it forms once a call, with the same
-centering and factor (``core.fastpath.centered_factor``); what stays
-this module's own is the streaming: the stored Grams, the batched
-projection passes, the counts passes of a column resample and the
-mode-space deflation.
+same time-axis run (``significance._time_resample_runs``) on Grams it
+forms once a call; what stays this module's own is the streaming: the
+stored Grams, the batched projection passes, the counts passes of a
+column resample and the mode-space deflation.
 
 **Time axis (axis=0).**  A moving-block row draw ``P`` (indices ``idx``)
 resamples the centered field to ``A = C P Xc`` (``C`` re-centers), whose
@@ -58,6 +57,7 @@ rows stay on their rank, where the rotation of each run reduces over the
 group; a space-axis run's resampled rows are the draws that fall on the
 rank's columns.
 """
+import functools
 from collections import namedtuple
 
 import numpy as np
@@ -65,14 +65,14 @@ import torch
 
 from xmca_tpu_torch.core import fastpath as _fast
 from xmca_tpu_torch.core.streaming import (_packed_cols, _put_chunk,
-                                           _recovery_weights,
                                            _transform_chunk, _weight_slice)
 from xmca_tpu_torch.parallel import mesh as _mesh
-from xmca_tpu_torch.stats.significance import _block_indices, run_seeds
+from xmca_tpu_torch.stats.significance import (_block_indices,
+                                               _resample_weights,
+                                               _time_resample_runs,
+                                               run_seeds)
 
 __all__ = ['bootstrap_spectra_streamed', 'deflated_gram']
-
-_JITTER_REL = 1e-6
 
 # what every part of one bootstrap round shares
 _Setup = namedtuple('_Setup', [
@@ -88,7 +88,8 @@ _Setup = namedtuple('_Setup', [
                    # kept columns; None without a space mesh
     'mesh',        # the device mesh of a sharded model, else None
     'p',           # per field: the kept width (the jitter floor's)
-    'n_obs', 'weights', 'normalize', 'dtype', 'device', 'eps', 'H',
+    'n_obs', 'weights', 'normalize', 'dtype', 'device', 'eps',
+    'H',           # the Hilbert operator of a complexified model, else None
     'complexify', 'bivariate', 'on_left', 'on_right', 'rotated',
     'kk',          # the modes of each run's subspace SVD
     'n_iter', 'power', 'tol', 'block_size', 'replace',
@@ -121,13 +122,6 @@ def deflated_gram(G, XcW, S, W):
     return G - B - B.T + (Ss @ _mesh.space_sum(Ws.T @ Ws)) @ Ss.T
 
 
-def _fold_chol(Gs, p, H, eps, complexify):
-    """Center -> fold (complexified) -> jitter (floor at the kept width
-    ``p``) -> Cholesky of one surrogate Gram."""
-    return _fast.centered_factor(Gs, p, eps, H if complexify else None,
-                                 _JITTER_REL)
-
-
 def _draw(su, seed, n_total):
     """Run ``seed``'s resample indices over an axis of ``n_total`` (None:
     nothing is resampled, nothing drawn) and its subspace start block,
@@ -140,24 +134,6 @@ def _draw(su, seed, n_total):
                              su.replace).to(su.device)
     omega = _fast.start_block(su.n_obs, su.kk, su.dtype, gen)
     return idx, omega.to(su.device)
-
-
-def _spectrum(su, La, Lb, omega):
-    """The reduced kernel's subspace SVD ``(U, s, V)``."""
-    M = (La.mH @ Lb) / (su.n_obs - 1)
-    return _fast.subspace_svd(M, omega, k=su.kk, n_iter=su.n_iter)
-
-
-def _weights(su, L_chol, T_side, idx=None):
-    """One side's projection weights ``C Z`` (``Z`` the real recovery
-    stack ``L^-H T``, folded to the analytic stack when complexified);
-    with ``idx`` (a time-axis resample) scattered to ``P^T C Z``, each
-    duplicated draw adding its row."""
-    Z = _recovery_weights(L_chol, T_side, su.H, su.complexify).to(su.dtype)
-    CZ = Z - Z.mean(dim=0)
-    if idx is None:
-        return CZ
-    return torch.zeros_like(CZ).index_add_(0, idx, CZ)
 
 
 def _kept_rows(su, k, P):
@@ -355,7 +331,8 @@ def bootstrap_spectra_streamed(
         kept=kept,
         kept_loc=kept_loc, cols=cols, mesh=mesh_sp,
         p=p, n_obs=int(n_obs), weights=weights or {}, normalize=normalize,
-        dtype=dtype, device=device, eps=_fast._eps(dtype), H=H,
+        dtype=dtype, device=device, eps=_fast._eps(dtype),
+        H=H if complexify else None,
         complexify=complexify, bivariate=bivariate, on_left=on_left,
         on_right=on_right, rotated=rotated,
         kk=n_rot if rotated else n_out_modes, n_iter=subspace_iters,
@@ -415,38 +392,29 @@ def _batches(seeds, batch_size):
 
 
 # ------------------------------------------------ axis=0: Gram resampling
-def _axis0_run(su, Gl, Gr, idx, omega):
-    """One time-axis run in Gram space: ``(s, Yl, Yr)``; the weights are
-    None when the model is not rotated (``Yr`` also for a PCA)."""
-    def side(G, resample, p):
-        if resample:
-            G = G.index_select(0, idx).index_select(1, idx)
-        return _fold_chol(G, p, su.H, su.eps, su.complexify)
-
-    La = side(Gl, su.on_left, su.p['left'])
-    Lb = side(Gr, su.on_right, su.p['right']) if su.bivariate else La
-    U, s, V = _spectrum(su, La, Lb, omega)
-    if not su.rotated:
-        return s, None, None
-    Yl = _weights(su, La, U, idx if su.on_left else None)
-    Yr = (_weights(su, Lb, V, idx if su.on_right else None)
-          if su.bivariate else None)
-    return s, Yl, Yr
-
-
 def _bootstrap_axis0(su, Gl, Gr, seeds, batch_size):
-    n_total = su.n_obs if (su.on_left or su.on_right) else None
+    """Time-axis runs in Gram space (``significance._time_resample_runs``
+    on the stored Grams); a rotated batch's weights go through one
+    projection pass per field."""
+    pool = [i for i, on in enumerate((su.on_left, su.on_right)) if on]
+    run = _time_resample_runs([Gl, Gr][:len(su.keys)], pool,
+                              [su.p[k] for k in su.keys], su.eps, su.H,
+                              su.kk, su.n_iter, su.dtype)
+    n_total = su.n_obs if pool else None
     if not su.rotated:
-        s = [_axis0_run(su, Gl, Gr, *_draw(su, seed, n_total))[0]
+        s = [run(*_draw(su, seed, n_total), lambda s, weight: s)
              for seed in seeds]
         return torch.stack(s).to(torch.float64).cpu().numpy(), None
+
+    def weights(s, weight):
+        return s, {k: weight(i) for i, k in enumerate(su.keys)}
+
     var, conv = [], []
     for batch in _batches(seeds, batch_size):
-        runs = [_axis0_run(su, Gl, Gr, *_draw(su, seed, n_total))
-                for seed in batch]
+        runs = [run(*_draw(su, seed, n_total), weights) for seed in batch]
         v, c = _project_and_rotate(
-            su, [r[0] for r in runs],
-            {'left': [r[1] for r in runs], 'right': [r[2] for r in runs]})
+            su, [s for s, _ in runs],
+            {k: [Y[k] for _, Y in runs] for k in su.keys})
         var.append(v)
         conv.append(c)
     return np.concatenate(var), np.concatenate(conv)
@@ -482,13 +450,22 @@ def _bootstrap_axis1(su, Gl, Gr, seeds, batch_size):
         return full.index_copy_(0, pool_kept, c)
 
     def chol(G, p):
-        return _fold_chol(G, p, su.H, su.eps, su.complexify)
+        return _fast.centered_factor(G, p, su.eps, su.H)
 
     # the side that is not resampled keeps its original Cholesky
     La0 = chol(Gl, su.p['left']) if not su.on_left else None
     Lb0 = (chol(Gr, su.p['right'])
            if su.bivariate and not su.on_right else None)
     p_l = su.p['left']
+
+    def factors(G, nb, r):
+        if both:
+            return chol(G[r], p_l), chol(G[nb + r], su.p['right'])
+        if su.on_left:
+            La = chol(G[r], p_l)
+            return La, Lb0 if su.bivariate else La
+        return La0, chol(G[r], su.p['right'])
+
     var, conv = [], []
     for batch in _batches(seeds, batch_size):
         draws = [_draw(su, seed, pool_w) for seed in batch]
@@ -502,17 +479,13 @@ def _bootstrap_axis1(su, Gl, Gr, seeds, batch_size):
         del c
         runs = []
         for r, (_, omega) in enumerate(draws):
-            if both:
-                La, Lb = chol(G[r], p_l), chol(G[nb + r], su.p['right'])
-            elif su.on_left:
-                La = chol(G[r], p_l)
-                Lb = Lb0 if su.bivariate else La
-            else:
-                La, Lb = La0, chol(G[r], su.p['right'])
-            U, s, V = _spectrum(su, La, Lb, omega)
+            La, Lb, _, U, s, V = _fast._chol_reduce(
+                functools.partial(factors, G, nb, r), su.n_obs - 1, omega,
+                su.kk, su.n_iter)
             if su.rotated:
-                runs.append((s, _weights(su, La, U),
-                             _weights(su, Lb, V) if su.bivariate else None))
+                runs.append((s, _resample_weights(La, U, su.H, su.dtype),
+                             _resample_weights(Lb, V, su.H, su.dtype)
+                             if su.bivariate else None))
             else:
                 runs.append((s,))
         del G
