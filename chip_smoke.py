@@ -20,14 +20,17 @@
    the SES sweep kernel (``check_ses``) at the monthly deployment's
    (480, 2076480), coarse and refined grids, against the plain loop on
    the card, timed beside its least time, its registers and spills;
+   the +-1 back-projection kernel (``check_pm1_project``) at PM1_SHAPES
+   against an f64 product and its plain blocked version, timed beside
+   its bound, the plain version and ``torch.mm(X.float().T, S_pad)``;
 3. drives the main path once through the public API at full width: two
    synthetic (2000 steps x 250 x 400 cells) f32 fields through
    ``xMCA -> set_solver(truncate=10) -> normalize -> apply_coslat ->
    solve(complexify=True) -> rotate(10) -> rule_n(N_RUNS)``, with the
    kernels' launch counters reset just before and read just after; then
-   (``project_blocks``) the +-1 back-projection of a run of that model
-   cast in PROJECT_BLOCKS column blocks against the default one block,
-   and ``rule_n`` under that budget against the default;
+   (``project_blocks``) the kernel's +-1 back-projection of a run of
+   that model against the plain version in one and in PROJECT_BLOCKS
+   column blocks and an f64 product, each timed;
 4. ``result_path``: every result getter (EOFs, PCs, amplitude and phase,
    both correlation patterns, reconstruction, ``fields``, ``predict``,
    ``scf``, rotation and correlation matrices) on the main path's model,
@@ -62,8 +65,9 @@
    ``info.xmca`` and the three arrays ``save_analysis`` writes, loaded
    into a fresh ``xMCA`` by the array-level ``load_analysis`` plus the
    coslat step, the load timed, its getters held to the model's, and
-   ``rule_n(16)`` on both (exactly 2 x 16 launches of syrk and
-   sign_field_sums each, the same spectra over the ratio of the totals);
+   ``rule_n(16)`` on both (exactly 2 x 16 launches of syrk,
+   sign_field_sums and pm1_project each, the same spectra over the ratio
+   of the totals);
    the file round trip where h5py is installed; a time-varying weight on
    a fresh model against numpy;
 10. ``ensemble_path``: ``rule_n`` on the same model in every other
@@ -72,7 +76,8 @@
    rotated solve a run) spectrum, no kernel launched; the generated
    'normal16', 'normal32' and 'rademacher' (N = 8, exactly 2 x N launches
    of surrogate_field and none of syrk/sign_field_sums) and
-   'rademacher1' (N = 16, 2 x N of syrk and sign_field_sums, equal bit
+   'rademacher1' (N = 16, 2 x N of syrk, sign_field_sums and
+   pm1_project, equal bit
    for bit to 'rademacher8'); each mean null within 5 standard errors of
    a +-1 null rotated to the same tolerance; then the fast against the
    exact spectrum on one field pair, the int8 full-Gram variant against
@@ -82,13 +87,15 @@
    cells f32, through ``set_solver(truncate=10) -> normalize ->
    apply_coslat -> solve(complexify=True) -> rotate(10) ->
    rule_n(N_LONG_RUNS)``, longer than the analytic fold's 8192 steps;
-   exactly 2 x N_LONG_RUNS launches of syrk and sign_field_sums; then
+   exactly 2 x N_LONG_RUNS launches of syrk, sign_field_sums and
+   pm1_project; then
    both kernels against their plain versions at that shape, and K1 at
    it and at the fold's longest record (8192 steps) in the band sweep,
    with and without its wave barrier;
 12. ``extend_path``: the main path with ``solve(complexify=True,
    extend='exp'|'theta', period=365)``, ``rule_n(16)`` (exactly 2 x 16
-   launches of syrk and sign_field_sums each) and ``bootstrapping(4)``;
+   launches of syrk, sign_field_sums and pm1_project each) and
+   ``bootstrapping(4)``;
    with 'theta', the SES kernel launched 2 x 2 times by the solve and as
    many by each bootstrap run, and never by the Rule-N runs;
    the theta forecast's wall and launches at full width, and 4096 of its
@@ -116,9 +123,10 @@
    against B's tile under each run's rotation, the space axis (two
    passes a field) with each run's counts-weighted Gram against B's in
    memory; then ``rule_n(N_WIDE_RUNS)`` of the rotated wide model
-   (``wide_rule_n``: exactly 2 x N_WIDE_RUNS launches of syrk and
-   sign_field_sums, its wall a run, its peak device memory, three column
-   blocks of a run's back-projection against an f64 product) and K1 and
+   (``wide_rule_n``: exactly 2 x N_WIDE_RUNS launches of syrk,
+   sign_field_sums and pm1_project, its wall a run, its peak device
+   memory, three column blocks of a run's back-projection and of the
+   plain version's against an f64 product, both timed) and K1 and
    K2 at its (2048, 6480000) shape against their plain versions
    (``wide_kernels``), timed beside their bounds and K1's library call;
 17. ``mesh_path``: the device mesh (``xmca_tpu_torch.parallel``) through
@@ -238,7 +246,7 @@ def _pm1_field(torch, n, p, n_pad, p_pad, gen, dtype):
 # for each kernel's bound: the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written
 # once) over the memory rate.
-PEAK_OPS = {'int8': 1979e12, 'bf16': 989e12}
+PEAK_OPS = {'int8': 1979e12, 'bf16': 989e12, 'f32': 67e12}
 PEAK_BYTES = 3.35e12
 # SASS instructions of one Philox4x32-10 call (csrc/philox.cuh), counted
 # by philox_sass_per_call() on 2026-10-16 (CUDA 12.8, sm_90a, -O3; NVIDIA
@@ -803,6 +811,103 @@ def check_ses(torch):
     return out
 
 
+# the +-1 back-projection's shapes (n_obs, p, m): ERA5's 0.25-deg grid
+# (the benchmark's Rule-N cell) complexified and real, the main path's
+# width, the 14610-step record's and the 103.7 GB chunk-backed record's
+PM1_SHAPES = ((2000, 721 * 1440, 20), (2000, 721 * 1440, 10),
+              (N_OBS, N_LAT * N_LON, 20), (N_LONG, N_LAT * N_LON, 20),
+              (2000, 6480000, 20))
+# f64 bytes of one column block of the exact back-projection
+PM1_REF_BYTES = 1 << 31
+
+
+def _pm1_errors(torch, X, S_pad, p, outs):
+    """Rel Frobenius distance of each of ``outs`` ((p, m) tensors) from
+    the f64 product ``(X^T S_pad)[:p]``, summed in column blocks of at
+    most PM1_REF_BYTES."""
+    S64 = S_pad.double()
+    cols = max(1, PM1_REF_BYTES // (8 * X.shape[0]))
+    diff, norm = [0.0] * len(outs), 0.0
+    for c0 in range(0, p, cols):
+        ref = X[:, c0:min(c0 + cols, p)].double().T @ S64
+        norm += float(torch.sum(ref * ref))
+        for k, out in enumerate(outs):
+            d = out[c0:c0 + ref.shape[0]].double() - ref
+            diff[k] += float(torch.sum(d * d))
+        del ref
+    return [(d / norm) ** 0.5 for d in diff]
+
+
+def check_pm1_project(torch):
+    """The +-1 back-projection kernel at PM1_SHAPES on padded fields drawn
+    by K2: within PROJECT_TOL of the f64 product (rel Frobenius), the same
+    bits on a second launch, one launch a call (m = 20 and 10); timed (a
+    median of 10 per-launch event pairs) beside its bound (multiply-adds
+    at 67 TFLOP/s f32 or bytes at 3.35 TB/s, the larger), the plain
+    blocked version (``core.fastpath._pm1_project_plain``: 1 GiB f32
+    column blocks, each one cuBLAS product) and the yardstick the port
+    never calls, ``torch.mm(X.float().T, S_pad)`` (not measured where the
+    f32 copy does not fit beside the field).  Registers and spills from
+    the build log."""
+    from xmca_tpu_torch.core.fastpath import _pm1_project_plain
+    from xmca_tpu_torch.ops import _build
+    from xmca_tpu_torch.ops.project import pm1_project
+    from xmca_tpu_torch.ops.surrogate import sign_field_sums
+    from xmca_tpu_torch.ops.syrk import pad_to
+    res = kernel_resources('pm1_project_kernel')
+    print('pm1_project kernels (registers, spill store / load bytes): {}'
+          .format(res or 'not rebuilt here'))
+    gen = torch.Generator(device='cuda').manual_seed(22)
+    rows = []
+    for n, p, m in PM1_SHAPES:
+        n_pad, p_pad = pad_to(n, p)
+        X, _ = sign_field_sums(22 + n + m, n, p, n_pad, p_pad, 'cuda')
+        S_pad = torch.zeros((n_pad, m), device='cuda')
+        S_pad[:n] = torch.randn((n, m), generator=gen, device='cuda')
+        _build.reset_launch_counts()
+        got = pm1_project(X, S_pad, p)
+        again = pm1_project(X, S_pad, p)
+        launches = _build.launch_counts().get('pm1_project', 0)
+        plain = _pm1_project_plain(X, S_pad, p)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        err, plain_err = _pm1_errors(torch, X, S_pad, p, (got, plain))
+        del again
+        t = _launch_ms(torch, lambda: pm1_project(X, S_pad, p), 10)
+        plain_ms = _time_ms(torch, lambda: _pm1_project_plain(X, S_pad, p),
+                            3)
+        del plain
+        torch.cuda.empty_cache()
+        if torch.cuda.mem_get_info()[0] > 1.2 * 4 * n_pad * p_pad:
+            library_ms = _time_ms(torch, lambda: torch.mm(
+                X.float().T, S_pad), 3)
+        else:
+            library_ms = None
+        b = bound(2.0 * n_pad * p * m, 'f32',
+                  n_pad * p + 4 * (p * m + n_pad * m))
+        rows.append(dict(shape=(n_pad, p_pad), p=p, m=m, rel_err=err,
+                         plain_rel_err=plain_err, same_bits=same,
+                         launches=launches, plain_ms=plain_ms,
+                         library_ms=library_ms, share=b['bound_ms'] / t['ms'],
+                         **t, **b))
+        print('pm1_project at {} (p {}, m {}): rel Frobenius vs f64 {:.2e} '
+              '(tol {:g}; plain {:.2e}), the same bits twice {}, {} '
+              'launches for two calls; kernel {}, bound {:.4f} ms ({}; '
+              '{:.1f}%), plain blocked {:.3f} ms, torch.mm(X.float().T, '
+              'S_pad) {}'.format(
+                  (n_pad, p_pad), p, m, err, PROJECT_TOL, plain_err, same,
+                  launches, _spread(t), b['bound_ms'], b['bound_by'],
+                  100 * b['bound_ms'] / t['ms'], plain_ms,
+                  'not measured (memory)' if library_ms is None else
+                  '{:.3f} ms'.format(library_ms)))
+        _check(err <= PROJECT_TOL and same and launches == 2,
+               'pm1_project at {} m {}: rel {:.2e}, same bits {}, launches '
+               '{}'.format((n_pad, p_pad), m, err, same, launches))
+        del X, S_pad, got
+        torch.cuda.empty_cache()
+    return {'shapes': rows, 'resources': res}
+
+
 def gen_runs(torch, fn, n_obs, n_vars, n_runs, device, **kw):
     """``n_runs`` Rule-N surrogate solves with the run seeds and start
     blocks of ``stats.significance``; returns (variances of the kept
@@ -1248,10 +1353,7 @@ def dense_path(torch, left, right, m):
     _check(pred_err <= 1e-4, 'dense predict differs from pcs')
     _check(stage_err <= 1e-4, 'the stage-by-stage solve differs from the '
            "model's: {:.2e}".format(stage_err))
-    for name in ('syrk', 'sign_field_sums'):
-        _check(launches.get(name, 0) == 2 * N_DENSE_RUNS,
-               'dense path launched {} {} times, not 2 x {}'.format(
-                   name, launches.get(name, 0), N_DENSE_RUNS))
+    _launch_gate('dense path', launches, N_DENSE_RUNS)
     _check(null.shape == (N_ROT, null.shape[1])
            and null.shape[1] >= 0.9 * N_DENSE_RUNS
            and np.isfinite(null).all(),
@@ -1679,10 +1781,7 @@ def long_path(torch, card):
     # f32 H and an f32 product over 14610 terms against f64 FFTs
     _check(h_err <= 1e-4, 'the long Hilbert operator is off: {:.2e}'
            .format(h_err))
-    for name in ('syrk', 'sign_field_sums'):
-        _check(launches.get(name, 0) == 2 * N_LONG_RUNS,
-               'long path launched {} {} times, not 2 x {}'.format(
-                   name, launches.get(name, 0), N_LONG_RUNS))
+    _launch_gate('long path', launches, N_LONG_RUNS)
     _check(np.isfinite(svals).all() and np.isfinite(var).all()
            and np.isfinite(null).all(), 'long path: non-finite results')
     _check(null.shape[0] == N_ROT and null.shape[1] >= 3,
@@ -1700,7 +1799,7 @@ N_ENS = {'draw': 8, 'exact': 2, 'normal16': 8, 'normal32': 8,
 # runs of the +-1 null rotated to tol 1e-8, the 'draw' runs' reference
 N_REF_1E8 = 32
 _KERNELS = ('syrk', 'sign_field_sums', 'surrogate_gram', 'surrogate_project',
-            'surrogate_field', 'ses_sweep')
+            'surrogate_field', 'ses_sweep', 'pm1_project')
 
 
 def _counts(launches):
@@ -1829,7 +1928,8 @@ def saveload_path(torch, m, left, right, card):
            and errs['pcs'] <= 1e-4, 'the loaded getters differ: {}'
            .format(errs))
     for lc in launches:
-        _check(lc['syrk'] == lc['sign_field_sums'] == 2 * N_SAVELOAD_RUNS,
+        _check(lc['syrk'] == lc['sign_field_sums'] == lc['pm1_project']
+               == 2 * N_SAVELOAD_RUNS,
                'rule_n on the saved/loaded model launched {}'.format(lc))
     _check(null_err <= 1e-4 and min(n.shape[1] for n in nulls)
            >= 0.9 * N_SAVELOAD_RUNS and np.isfinite(nulls[1]).all(),
@@ -1931,6 +2031,7 @@ def ensemble_path(torch, m, null_r8, card):
             want['surrogate_field'] = 2 * n_runs
         elif name in ('rademacher1', 'rademacher8 at 1e-8'):
             want['syrk'] = want['sign_field_sums'] = 2 * n_runs
+            want['pm1_project'] = 2 * n_runs
         _check(launches == want, '{} launched {}, not {}'.format(
             name, launches, want))
         _check(len(dense_calls) == (n_runs if name == 'exact' else 0),
@@ -2008,7 +2109,7 @@ def fast_vs_exact(torch, card):
 
 PROJECT_BLOCKS = 7   # column blocks the main width's back-projection is
                      # cut into by project_blocks
-N_BLOCK_RUNS = 4     # rule_n runs under the default and the cut budget
+N_BLOCK_RUNS = 4     # rule_n runs whose first projection is checked
 # a back-projection against another evaluation, rel Frobenius: f32 sums
 # of 2000 +-1 terms, whose largest entries move by ~1e-6 of the largest
 # between two summation orders (the f64 product included)
@@ -2030,61 +2131,60 @@ def _first_projection(fp, store, keep):
 
 
 def project_blocks(torch, m):
-    """The +-1 back-projection at the main path's width cut into
-    PROJECT_BLOCKS column blocks (``core.fastpath._PROJECT_BYTES``
-    patched): the first projection of ``m.rule_n(N_BLOCK_RUNS)`` (one
-    block by default) against the same field and weights in blocks, and
-    each against an f64 product, within PROJECT_TOL, each timed; then
-    ``rule_n(N_BLOCK_RUNS)`` under the cut budget against the default,
-    within ROT_STOP_TOL (two rotations of loadings a roundoff apart)."""
-    import numpy as np
+    """The +-1 back-projection at the main path's width: the kernel's
+    first projection of ``m.rule_n(N_BLOCK_RUNS)`` (2 x N_BLOCK_RUNS
+    launches) against the plain version on the same field and weights in
+    one column block (the default ``core.fastpath._PROJECT_BYTES``) and
+    in PROJECT_BLOCKS (patched), and each against an f64 product, within
+    PROJECT_TOL; the kernel and the plain version in one block timed."""
     from xmca_tpu_torch.core import fastpath as fp
+    from xmca_tpu_torch.ops import _build
     from xmca_tpu_torch.ops.syrk import pad_to
     p = N_LAT * N_LON
     n_pad, p_pad = pad_to(N_OBS, p)
     first = []
     restore = _first_projection(fp, first, lambda X, S, p_, out: (X, S, out))
-    ref_null = _vals(m.rule_n(N_BLOCK_RUNS, seed=SEED))
+    _build.reset_launch_counts()
+    _vals(m.rule_n(N_BLOCK_RUNS, seed=SEED))
+    launches = _build.launch_counts().get('pm1_project', 0)
     restore()
-    X, S, whole = first[0]
-    default = fp._PROJECT_BYTES
+    X, S, kernel = first[0]
+    S_pad = torch.zeros((n_pad, S.shape[1]), device='cuda')
+    S_pad[:N_OBS] = S
     one = len(range(0, p, fp._pm1_cols(n_pad)))
-    one_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 10)
+    whole = fp._pm1_project_plain(X, S_pad, p)
+    kernel_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 10)
+    plain_ms = _time_ms(torch, lambda: fp._pm1_project_plain(X, S_pad, p),
+                        10)
+    default = fp._PROJECT_BYTES
     fp._PROJECT_BYTES = 4 * n_pad * -(-p_pad // PROJECT_BLOCKS)
     try:
         blocks = len(range(0, p, fp._pm1_cols(n_pad)))
-        cut = fp._pm1_project(X, S, p)
-        cut_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 10)
-        null = _vals(m.rule_n(N_BLOCK_RUNS, seed=SEED))
+        cut = fp._pm1_project_plain(X, S_pad, p)
     finally:
         fp._PROJECT_BYTES = default
-    S_pad = torch.zeros((n_pad, S.shape[1]), dtype=torch.float64,
-                        device='cuda')
-    S_pad[:N_OBS] = S.double()
-    exact = (X.double().T @ S_pad)[:p]
+    exact = (X.double().T @ S_pad.double())[:p]
     errs = {name: (float((a.double() - b).abs().max() / b.abs().max()),
                    float(torch.linalg.norm(a.double() - b)
                          / torch.linalg.norm(b)))
-            for name, a, b in (('cut vs one', cut, whole.double()),
-                               ('one vs f64', whole, exact),
-                               ('cut vs f64', cut, exact))}
-    var_err = (float(np.abs(null / ref_null - 1).max())
-               if null.shape == ref_null.shape else float('inf'))
-    print('project_blocks at {} x {} (+-1 int8 {} x {}, S {} x {}): {} '
+            for name, a, b in (('kernel vs plain', kernel, whole.double()),
+                               ('kernel vs f64', kernel, exact),
+                               ('plain vs f64', whole, exact),
+                               ('plain cut vs f64', cut, exact))}
+    print('project_blocks at {} x {} (+-1 int8 {} x {}, S {} x {}): '
+          'rule_n({}) launched pm1_project {} times; the plain version in {} '
           'block(s) by default, {} cut: rel (largest entry, Frobenius) {} '
-          '(tol {:g} Frobenius); {:.4f} ms one block, {:.4f} ms in {}; '
-          'rule_n({}) in {} blocks vs one, rotated variance rel {:.2e} (tol '
-          '{:g})'.format(
-              N_OBS, p, n_pad, p_pad, *S.shape, one, blocks, errs,
-              PROJECT_TOL, one_ms, cut_ms, blocks, N_BLOCK_RUNS, blocks,
-              var_err, ROT_STOP_TOL))
+          '(tol {:g} Frobenius); kernel {:.4f} ms, plain in one block {:.4f} '
+          'ms'.format(N_OBS, p, n_pad, p_pad, *S.shape, N_BLOCK_RUNS,
+                      launches, one, blocks, errs, PROJECT_TOL, kernel_ms,
+                      plain_ms))
+    _check(launches == 2 * N_BLOCK_RUNS, 'project_blocks: rule_n({}) '
+           'launched pm1_project {} times'.format(N_BLOCK_RUNS, launches))
     _check(one == 1 and blocks == PROJECT_BLOCKS,
            'project_blocks: the default budget casts the main width in more '
            'than one block, or the cut one not in {}'.format(PROJECT_BLOCKS))
     _check(all(frob <= PROJECT_TOL for _, frob in errs.values()),
-           'the blocked back-projection differs: {}'.format(errs))
-    _check(var_err <= ROT_STOP_TOL and np.isfinite(null).all(),
-           'rule_n in blocks differs: {:.2e}'.format(var_err))
+           'the back-projection differs: {}'.format(errs))
 
 
 def ensemble_small(torch):
@@ -2168,15 +2268,15 @@ WIDE_LAT, WIDE_LON, WIDE_TILES = 360, 720, 25
 WIDE_PEAK_GB = 16.0
 N_WIDE_RUNS = 4      # Rule-N runs of the wide record: cut for time only
 # rule_n's device memory above what is allocated before it: two padded
-# int8 fields (13.27 GB each), one 1 GiB f32 block, the projections and
-# the loading stack
+# int8 fields (13.27 GB each), the projections and the loading stack
 WIDE_RULE_N_GB = 40.0
 
 
 def _launch_gate(label, launches, n_runs):
-    """K1 and K2 launched exactly 2 x ``n_runs`` times (one +-1 Rule-N run
-    draws two fields and forms two Grams)."""
-    for name in ('syrk', 'sign_field_sums'):
+    """K1, K2 and the back-projection kernel launched exactly 2 x
+    ``n_runs`` times (one rotated +-1 Rule-N run draws two fields, forms
+    two Grams and projects both fields, at m = 20 in one launch each)."""
+    for name in ('syrk', 'sign_field_sums', 'pm1_project'):
         _check(launches.get(name, 0) == 2 * n_runs,
                '{} launched {} {} times, not 2 x {}'.format(
                    label, name, launches.get(name, 0), n_runs))
@@ -2814,15 +2914,16 @@ def _call_walls(torch, module, name, walls):
 
 def wide_rule_n(torch, ms, p, card):
     """``rule_n(N_WIDE_RUNS)`` of the rotated wide model: two padded +-1
-    int8 fields of (2048, p) a run, their back-projection cast in column
-    blocks.  Exactly 2 x N_WIDE_RUNS launches of K1 and K2, every run
-    kept and finite, the peak device memory above what is allocated
-    before the call under WIDE_RULE_N_GB.  Run 0's left field is drawn
-    again after the call (its first 128 columns checked against the
-    run's): the run's projection on its first, a middle and its last
-    column block against an f64 product of those columns and the run's
-    weights, within PROJECT_TOL.  Then K1 and K2 at
-    this shape (:func:`wide_kernels`)."""
+    int8 fields of (2048, p) a run, each projected by one launch of the
+    back-projection kernel.  Exactly 2 x N_WIDE_RUNS launches of K1, K2
+    and pm1_project, every run kept and finite, the peak device memory
+    above what is allocated before the call under WIDE_RULE_N_GB.  Run
+    0's left field is drawn again after the call (its first 128 columns
+    checked against the run's): the run's projection and the plain
+    version's (1 GiB f32 column blocks) on the plain version's first, a
+    middle and its last column block against an f64 product of those
+    columns and the run's weights, within PROJECT_TOL; both timed.  Then
+    K1 and K2 at this shape (:func:`wide_kernels`)."""
     import numpy as np
     from xmca_tpu_torch.core import fastpath as fp
     from xmca_tpu_torch.core.rotation import ensemble_space
@@ -2859,18 +2960,22 @@ def wide_rule_n(torch, ms, p, card):
     S_pad = torch.zeros((n_pad, S.shape[1]), dtype=torch.float64,
                         device='cuda')
     S_pad[:N_OBS] = S.double()
+    S32 = S_pad.float()
+    plain = fp._pm1_project_plain(X, S32, p).cpu()
     cols = fp._pm1_cols(n_pad)
     starts = list(range(0, p, cols))
-    block_err = []
+    block_err, plain_err = [], []
     for c0 in (starts[0], starts[len(starts) // 2], starts[-1]):
         ref = (X[:, c0:c0 + cols].double().T @ S_pad).cpu()
-        got = out[c0:c0 + ref.shape[0]].double()
-        block_err.append((c0, ref.shape[0], float(
-            (got - ref).abs().max() / ref.abs().max()), float(
-            torch.linalg.norm(got - ref) / torch.linalg.norm(ref))))
+        for errs, res in ((block_err, out), (plain_err, plain)):
+            got = res[c0:c0 + ref.shape[0]].double()
+            errs.append((c0, ref.shape[0], float(
+                (got - ref).abs().max() / ref.abs().max()), float(
+                torch.linalg.norm(got - ref) / torch.linalg.norm(ref))))
         del ref
     proj_ms = _time_ms(torch, lambda: fp._pm1_project(X, S, p), 3)
-    del X, S_pad, out
+    plain_ms = _time_ms(torch, lambda: fp._pm1_project_plain(X, S32, p), 3)
+    del X, S_pad, S32, out, plain
     torch.cuda.empty_cache()
     field_gb = n_pad * p_pad / 1e9
     print('{} at {} x 2 x {} (+-1 int8 fields {} x {}, {:.2f} GB each): '
@@ -2884,14 +2989,15 @@ def wide_rule_n(torch, ms, p, card):
               WIDE_RULE_N_GB, space, 2 * p, N_ROT,
               np.asarray(iters).tolist(),
               np.array2string(null[:, 0], precision=4), card))
-    print('{} back-projection: {} blocks of {} columns; run 0\'s left '
-          'field drawn again (its first 128 columns equal the run\'s: {}), '
-          'blocks (first column, width, rel vs f64: largest entry, '
-          'Frobenius) {} (tol {:g} Frobenius); '
-          '_pm1_project {:.4f} ms a field (the int8 field read once: '
-          '{:.4f} ms at {:g} B/s)'.format(
-              label, len(starts), cols, same_field, block_err,
-              PROJECT_TOL, proj_ms,
+    print('{} back-projection: the plain version\'s {} blocks of {} '
+          'columns; run 0\'s left field drawn again (its first 128 columns '
+          'equal the run\'s: {}), blocks (first column, width, rel vs f64: '
+          'largest entry, Frobenius) kernel {}, plain {} (tol {:g} '
+          'Frobenius); _pm1_project (the kernel) {:.4f} ms a field, the '
+          'plain version {:.4f} ms (the int8 field read once: {:.4f} ms at '
+          '{:g} B/s)'.format(
+              label, len(starts), cols, same_field, block_err, plain_err,
+              PROJECT_TOL, proj_ms, plain_ms,
               1e3 * n_pad * p_pad / PEAK_BYTES, PEAK_BYTES))
     _launch_gate(label, launches, N_WIDE_RUNS)
     _check(null.shape == (N_ROT, N_WIDE_RUNS) and np.isfinite(null).all(),
@@ -2900,9 +3006,10 @@ def wide_rule_n(torch, ms, p, card):
                bool(np.isfinite(null).all())))
     _check(peak < WIDE_RULE_N_GB, '{} took {:.2f} GB'.format(label, peak))
     _check(same_field and len(starts) > 2
-           and all(frob <= PROJECT_TOL for _, _, _, frob in block_err),
-           '{}: the blocked back-projection differs from f64: {}'.format(
-               label, block_err))
+           and all(frob <= PROJECT_TOL
+                   for _, _, _, frob in block_err + plain_err),
+           '{}: the back-projection differs from f64: kernel {}, plain {}'
+           .format(label, block_err, plain_err))
     k1, k2 = wide_kernels(torch, p)
     return (dict(k1, launches=launches['syrk']),
             dict(k2, launches=launches['sign_field_sums']))
@@ -3697,6 +3804,7 @@ def main():
     k3 = check_surrogate_gram(torch)
     k4 = check_surrogate_project(torch)
     k6 = check_ses(torch)
+    k7 = check_pm1_project(torch)
 
     left, right = make_fields(N_OBS, N_LAT, N_LON)
     torch.cuda.synchronize()
@@ -3722,12 +3830,7 @@ def main():
               int(np.median(iters)), iters.max(), peak_gb))
     print('rotated variance {}'.format(np.array2string(var, precision=4)))
     print('null q95 {}'.format(np.array2string(q95, precision=4)))
-    _check(launches.get('syrk', 0) == 2 * N_RUNS,
-           'main path launched syrk {} times, not 2 x {}'.format(
-               launches.get('syrk', 0), N_RUNS))
-    _check(launches.get('sign_field_sums', 0) == 2 * N_RUNS,
-           'main path launched sign_field_sums {} times, not 2 x {}'
-           .format(launches.get('sign_field_sums', 0), N_RUNS))
+    _launch_gate('main path', launches, N_RUNS)
     _check(null.shape[0] == N_ROT and null.shape[1] >= int(0.9 * N_RUNS),
            'Rule-N kept {} of {} runs'.format(null.shape[1], N_RUNS))
     _check(np.isfinite(null).all() and np.isfinite(var).all(),
@@ -3812,6 +3915,12 @@ def main():
              source='xmca_tpu_torch/csrc/ses_sweep.cu', replaces=None,
              launches=sum(ext_ses['theta'].values()),
              launches_by_stage=ext_ses['theta'], **k6),
+        # port-only: the JAX package's convert is fused into its
+        # contraction by XLA; on the public path of every rotated +-1
+        # Rule-N run
+        dict(name='pm1_project', route='cuda',
+             source='xmca_tpu_torch/csrc/pm1_project.cu', replaces=None,
+             launches=launches['pm1_project'], **k7),
     ]
     print(json.dumps({'kernels': kernels}))
     print(card)

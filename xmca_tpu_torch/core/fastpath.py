@@ -18,8 +18,8 @@ input.  The JAX package's 3-pass ``HIGH`` tier (``_dot_high``) and
 ``grade='fast'``'s single-pass bf16 n x n dot both become f32 here, which
 is more accurate; the
 +-1 surrogate back-projection ``X^T S`` runs in f32 as well (a +-1 field
-is exact in f32, and the product is ~1e-2 of the Gram's work), cast one
-column block at a time (:func:`_pm1_project`).  The
+is exact in f32): on the card one kernel reads the int8 field once, on
+the CPU it is cast one column block at a time (:func:`_pm1_project`).  The
 generated surrogate's kernels round ``S`` to bf16 and sum in f32, as the
 JAX package's kernels do.
 
@@ -38,6 +38,7 @@ import torch
 from xmca_tpu_torch.core.linalg import (ns_polar_iterate_scaled,
                                         ns_polar_schedule)
 from xmca_tpu_torch.core.preprocess import _analytic_weights
+from xmca_tpu_torch.ops.project import pm1_project
 from xmca_tpu_torch.parallel import mesh as _mesh
 from xmca_tpu_torch.utils import trace
 
@@ -420,9 +421,9 @@ def fast_rotated_variance(Xl, Xr, omega, n_rot, power=1, tol=1e-8, n_iter=8,
                        polar_method)
 
 
-# the most bytes of f32 that a +-1 field's back-projection casts at
-# once: the JAX package casts inside the contraction, so no f32 copy of a
-# whole field may exist here
+# the most bytes of f32 that the plain +-1 back-projection casts at once:
+# the JAX package casts inside the contraction, so no f32 copy of a whole
+# field may exist here
 _PROJECT_BYTES = 1 << 30
 
 
@@ -444,13 +445,21 @@ def _pm1_blocks(X, stop):
 @trace.spanned('project')
 def _pm1_project(X, S, p):
     """``X^T S`` (p, m) f32 of a padded +-1 int8 field ``X`` (n_pad,
-    p_pad) and f32 weights ``S`` (n_obs, m), the field cast to f32 one
-    column block at a time (:func:`_pm1_blocks`).  Blocks run over the
-    padded width, so a field of one block gives the whole-field product
-    ``(S_pad^T X)^T`` bit for bit; padded columns are dropped."""
+    p_pad) and f32 weights ``S`` (n_obs, m); padded columns are dropped.
+    A CUDA field takes the kernel (:func:`xmca_tpu_torch.ops.project.
+    pm1_project`: the field read once, never copied to f32), any other
+    the plain version (:func:`_pm1_project_plain`)."""
     S_pad = S.new_zeros((X.shape[0], S.shape[1]))
     S_pad[:S.shape[0]] = S
-    out = S.new_empty((p, S.shape[1]))
+    return (pm1_project if X.is_cuda else _pm1_project_plain)(X, S_pad, p)
+
+
+def _pm1_project_plain(X, S_pad, p):
+    """``(X^T S_pad)[:p]`` on any device, the int8 field cast to f32 one
+    column block at a time (:func:`_pm1_blocks`).  Blocks run over the
+    padded width, so a field of one block gives the whole-field product
+    ``(S_pad^T X)^T`` bit for bit."""
+    out = S_pad.new_empty((p, S_pad.shape[1]))
     for c0, block in _pm1_blocks(X, p):
         part = (S_pad.T @ block).T
         out[c0:c0 + part.shape[0]] = part[:p - c0]
@@ -513,8 +522,8 @@ def fast_surrogate_variance_tri(seed, omega, n_obs, n_vars, H=None,
     kernel forms the raw Gram, centering comes from the Gram alone
     (``w = G 1 / n``, ``mu.mu = 1^T G 1 / n^2``), then the analytic fold,
     the jitter, Cholesky, the reduced kernel and the subspace SVD.  The
-    rotated variant back-projects the loadings (``X^T S``, f32, one
-    column block of the field at a time: :func:`_pm1_project`) and runs
+    rotated variant back-projects the loadings (``X^T S``, f32, in one
+    kernel launch on the card: :func:`_pm1_project`) and runs
     promax in the space :func:`ensemble_space` picks.
 
     ``grade='fast'`` keeps the JAX package's 2e-3 jitter floor; its n x n

@@ -50,6 +50,7 @@ _SIGNATURES = {
     'xmca_surrogate_project': [_P, _P, _I, _I, _I, _U, _I, _P],
     'xmca_ses_sweep': [_P, _I, _I, _I, _P, _I, _P, _P, _D, _D, _P, _P, _P,
                        _P, _P, _P],
+    'xmca_pm1_project': [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 _state = {'lib': None, 'log': ''}
