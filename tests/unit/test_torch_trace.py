@@ -17,6 +17,12 @@ CPU.
   ``forecast_columns`` counts four series a column a run (forecast and
   backcast of both fields), with or without a profiler, and the answers
   are bit-equal with the profiler on and off.
+* The n x n tail's spans (``fold``, ``reduce``, ``recover``) nest inside
+  the spans that held that work before them: a Rule-N run's folds,
+  factors and kernel inside ``gram`` spans, its recoveries inside the
+  run; on the route of long records
+  (above ``_HILBERT_MATMUL_MAX_N`` steps) the answers are bit-equal with
+  the profiler on and off.
 * ``ops._build.launch_counts`` and ``parallel.mesh.collective_counts``
   read as they did before they became views of the registry.
 """
@@ -35,9 +41,13 @@ from xmca_tpu_torch.utils import trace
 from xmca_tpu_torch.xarray import xMCA
 
 N_OBS, GRID, N_ROT, RUNS = 64, (8, 20), 4, 2
-RULE_N_STAGES = {'start', 'draw', 'gram', 'subspace', 'project', 'varimax'}
+RULE_N_STAGES = {'start', 'draw', 'gram', 'subspace', 'recover', 'project',
+                 'varimax'}
 BOOT_STAGES = {'resample', 'start', 'gram', 'subspace', 'project',
                'varimax'}
+# the n x n tail's spans, each nested in a stage's span (a Rule-N run's
+# 'recover' is a stage of its own)
+TAIL = {'fold', 'reduce', 'recover'}
 
 
 def _fields():
@@ -196,7 +206,8 @@ def test_ensemble_calls_record_runs_and_stages(model, call, stages):
         assert r['parent'] == top['id']
         kids = [s for s in under[r['id']] if s['parent'] == r['id']]
         assert {s['name'] for s in kids} - {'sync'} == stages
-        assert all(s['name'] in stages | {'sync'} for s in under[r['id']])
+        assert all(s['name'] in stages | TAIL | {'sync'}
+                   for s in under[r['id']])
     collect = [s for s in spans if s['name'] == 'collect']
     assert len(collect) == 1 and collect[0]['parent'] == top['id']
     if call == 'bootstrapping':
@@ -376,6 +387,55 @@ def test_keeping_collects_each_runs_singular_values(model):
         assert bool((s[:-1] >= s[1:]).all())
     _boot(model)
     assert len(kept) == RUNS
+
+
+def test_the_tail_spans_nest_inside_the_spans_that_held_their_work(model):
+    """Per Rule-N run: two ``fold`` spans (one a field, inside the field's
+    ``gram``), one ``reduce`` (the factors and the kernel, inside the
+    run's reduction ``gram``) and two ``recover`` spans (one a side,
+    children of the run)."""
+    _, spans = _profiled(lambda: _rule_n(model))
+    by_id = {s['id']: s for s in spans}
+    _, runs, under = _tree(spans, 'rule_n')
+    for r in runs:
+        tail = [s for s in under[r['id']] if s['name'] in TAIL]
+        assert collections.Counter(s['name'] for s in tail) == {
+            'fold': 2, 'reduce': 1, 'recover': 2}
+        for s in tail:
+            assert s['attrs'] == {}
+            parent = by_id[s['parent']]
+            if s['name'] == 'recover':
+                assert parent['id'] == r['id']
+            else:
+                assert parent['name'] == 'gram'
+                assert parent['start_ns'] <= s['start_ns'] <= s[
+                    'end_ns'] <= parent['end_ns']
+    # a fit's data route: the tail under the solve, once a field
+    _, spans = _profiled(_fit)
+    names = collections.Counter(s['name'] for s in spans)
+    assert (names['fold'], names['reduce'], names['recover']) == (2, 1, 2)
+
+
+def test_long_record_answers_are_bit_equal_with_and_without_a_profiler(
+        monkeypatch):
+    """The route of records above the fold's threshold (patched to 32
+    steps under the 64-step record): the fit builds Z by FFT, and Rule-N
+    folds with the n x n operator H."""
+    import xmca_tpu_torch.api.array as tarr
+    monkeypatch.setattr(tarr, '_HILBERT_MATMUL_MAX_N', 32)
+
+    def answers():
+        m = _fit()
+        assert not m._complexify_pending
+        return {'svals': np.asarray(m.singular_values().values),
+                'variance': np.asarray(m.variance().values),
+                'rule_n': _rule_n(m)}
+
+    plain = answers()
+    traced, spans = _profiled(answers)
+    assert TAIL <= {s['name'] for s in spans}
+    for key in plain:
+        np.testing.assert_array_equal(plain[key], traced[key], err_msg=key)
 
 
 def test_launch_and_collective_counts_read_as_before():

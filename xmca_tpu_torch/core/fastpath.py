@@ -30,7 +30,12 @@ Under a profiler the stages record spans (:mod:`xmca_tpu_torch.utils.
 trace`): ``draw`` (a +-1 field and its sums), ``gram`` (the Grams and what
 is formed from them up to the reduced kernel; ``route='data'`` where the
 Grams are products over the data), ``subspace`` (:func:`subspace_svd`)
-and ``project`` (the spatial vectors).
+and ``project`` (the spatial vectors).  The n x n tail records ``fold``
+(:func:`_fold_jitter`: the analytic fold by H and the jitter) and
+``reduce`` (the two sides' Cholesky factors and ``M = La^H Lb / dof``),
+inside the ``gram`` span that holds that work, and ``recover``
+(:func:`_recover`: ``L^-H T`` and the H^T stack) where the spatial
+vectors are formed.
 """
 import numpy as np
 import torch
@@ -91,9 +96,10 @@ def _fold_jitter(G, p, input_eps, H=None, jitter_rel=1e-6):
     fold of a real temporal Gram when ``H`` is given
     (:func:`_analytic_fold`), then the rank jitter at the contracted width
     ``p`` and the input precision ``input_eps`` (:func:`_jitter`)."""
-    if H is not None:
-        G = _analytic_fold(G, H)
-    return _jitter(G, p, jitter_rel, input_eps=input_eps)
+    with trace.span('fold'):
+        if H is not None:
+            G = _analytic_fold(G, H)
+        return _jitter(G, p, jitter_rel, input_eps=input_eps)
 
 
 def hilbert_imag_matrix(n, dtype=np.float64):
@@ -264,11 +270,12 @@ def _chol_reduce(factors, dof, omega, k, n_iter, **gram):
     ``factors()`` returns the lower Cholesky factors ``(La, Lb)`` of the
     two sides' jittered temporal Grams; they and the reduced kernel ``M =
     La^H Lb / dof`` are one ``gram`` span with the route's attributes
-    ``gram``.  The subspace SVD of ``M`` from the start block ``omega``
-    follows (none where ``omega`` is None).  Returns ``(La, Lb, M, U, s,
-    V)``; a caller takes the totals it needs from ``M``.
+    ``gram``, around the tail's ``reduce`` span.  The subspace SVD of
+    ``M`` from the start block ``omega`` follows (none where ``omega`` is
+    None).  Returns ``(La, Lb, M, U, s, V)``; a caller takes the totals it
+    needs from ``M``.
     """
-    with trace.span('gram', **gram):
+    with trace.span('gram', **gram), trace.span('reduce'):
         La, Lb = factors()
         M = (La.mH @ Lb) / dof
     if omega is None:
@@ -280,8 +287,9 @@ def _recover(L, T_side, H=None):
     """The recovery of the n x n tail, for every route: ``L^-H T`` of one
     side's factor ``L`` and singular vectors ``T_side``; with ``H``, the
     real stack :func:`analytic_projection_stack` of it."""
-    T = torch.linalg.solve_triangular(L.mH, T_side, upper=True)
-    return T if H is None else analytic_projection_stack(T, H)
+    with trace.span('recover'):
+        T = torch.linalg.solve_triangular(L.mH, T_side, upper=True)
+        return T if H is None else analytic_projection_stack(T, H)
 
 
 def analytic_projection_stack(T, H):
