@@ -2728,7 +2728,8 @@ def _wide_axis0_reference(torch, grams, p, H, n_iter):
         folded = [fp._fold_jitter(fp._center_gram(g), p, eps, H)
                   for g in (grams[0][idx][:, idx], grams[1])]
         sv = fp._chol_reduce(lambda: [fp._cholesky(f) for f in folded],
-                             N_OBS - 1, omega, N_ROT, n_iter)[4]
+                             N_OBS - 1, omega, N_ROT, n_iter,
+                             form=False)[4]
         svals.append(sv)
         ev = [torch.linalg.eigvalsh(f) for f in folded]
         kappa.append(max(float(e[-1] / e[0]) for e in ev))
@@ -2817,7 +2818,7 @@ def wide_stream_path(torch, card, peak_800mb):
         omega = fp.start_block(N_OBS, N_ROT, folded[0].dtype, gen)
         _, _, M, _, s, _ = fp._chol_reduce(
             lambda: [fp._cholesky(f) for f in folded], N_OBS - 1, omega,
-            N_ROT, ms._subspace_iters)
+            N_ROT, ms._subspace_iters, form=True)
         tot = torch.stack([fp.nuclear_norm(M), torch.sum(torch.abs(M) ** 2)])
         ev = [torch.linalg.eigvalsh(f.to(torch.complex128)) for f in folded]
         return (s.cpu().numpy(), tot.cpu().numpy(),

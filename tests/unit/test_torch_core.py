@@ -127,6 +127,60 @@ def test_subspace_svd_with_jax_start_block(fields, orth):
                                np.asarray(V_j), rtol=0, atol=1e-8)
 
 
+@pytest.fixture(scope='module')
+def tail_factors():
+    """``(La, Lb, dof)`` of a complexified pair at the n x n tail's shape
+    (n = 300; 12 shared modes of falling amplitude plus noise), complex128
+    from the port's data route."""
+    rng = np.random.default_rng(1)
+    n, p_l, p_r = 300, 420, 380
+    t = np.arange(n)
+    modes = np.sin(2 * np.pi * t[:, None] * np.arange(1, 13)[None] / n) \
+        * np.linspace(6, 1, 12)[None]
+    Xl, Xr = (modes @ rng.standard_normal((12, p)) + rng.standard_normal(
+        (n, p)) for p in (p_l, p_r))
+    Xl, Xr = Xl - Xl.mean(0), Xr - Xr.mean(0)
+    H = tfast.hilbert_imag_matrix(n, np.float64)
+    La, Lb = tfast._data_reduce(_t(Xl), _t(Xr), _t(H), None, 0, 0, 1e-6,
+                                form=True)[:2]
+    assert La.dtype == torch.complex128
+    return La, Lb, n - 1
+
+
+@pytest.mark.parametrize('dtype', [torch.complex128, torch.complex64])
+def test_subspace_svd_through_the_factors(tail_factors, dtype):
+    """The subspace SVD applied through the factors ``(La, Lb, dof)``
+    against the same kernel formed, from one start block, k = 10 and six
+    rounds: in complex128 the spectra agree to 1e-10 and the vectors to
+    1e-8; in complex64 (TF32 off) the factored route's spectrum lies
+    within 2x of the formed route's error (relative, in the 2-norm)
+    against the complex128 one."""
+    assert torch.get_float32_matmul_precision() == 'highest'
+    La, Lb, dof = tail_factors
+    k, n_iter = 10, 6
+    omega = tfast.start_block(La.shape[0], k, torch.complex128,
+                              torch.Generator().manual_seed(5))
+    ref = tfast.subspace_svd((La.mH @ Lb) / dof, omega, k, n_iter)
+    La, Lb = La.to(dtype), Lb.to(dtype)
+    formed = tfast.subspace_svd((La.mH @ Lb) / dof, omega, k, n_iter)
+    factored = tfast.subspace_svd((La, Lb, dof), omega, k, n_iter)
+    for out in (formed, factored):
+        assert all(x.dtype == dtype for x in (out[0], out[2]))
+    if dtype == torch.complex128:
+        np.testing.assert_allclose(factored[1].numpy(), formed[1].numpy(),
+                                   rtol=1e-10)
+        for i in (0, 2):
+            got, want = factored[i].numpy(), formed[i].numpy()
+            np.testing.assert_allclose(_align(got, want), want, rtol=0,
+                                       atol=1e-8)
+        return
+    s_ref = ref[1].numpy()
+    err_formed, err_factored = (
+        np.linalg.norm(out[1].double().numpy() - s_ref)
+        / np.linalg.norm(s_ref) for out in (formed, factored))
+    assert 0 < err_factored <= 2 * err_formed
+
+
 def test_nuclear_norms(fields):
     Xl, Xr = fields
     H = jfast.hilbert_imag_matrix(Xl.shape[0], np.float64)

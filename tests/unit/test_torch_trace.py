@@ -18,9 +18,11 @@ CPU.
   backcast of both fields), with or without a profiler, and the answers
   are bit-equal with the profiler on and off.
 * The n x n tail's spans (``fold``, ``reduce``, ``recover``) nest inside
-  the spans that held that work before them: a Rule-N run's folds,
-  factors and kernel inside ``gram`` spans, its recoveries inside the
-  run; on the route of long records
+  the spans that held that work before them: a Rule-N run's folds and
+  factors inside ``gram`` spans, its recoveries inside the run; the
+  ``reduced_kernels`` counter says which reductions formed the kernel
+  ``M`` (the fit's solve, unrotated Rule-N) and which applied it through
+  the factors (rotated Rule-N, the bootstrap); on the route of long records
   (above ``_HILBERT_MATMUL_MAX_N`` steps) the answers are bit-equal with
   the profiler on and off.
 * ``ops._build.launch_counts`` and ``parallel.mesh.collective_counts``
@@ -69,15 +71,17 @@ def _fields():
     return out
 
 
-def _fit():
+def _fit(rotate=True):
     """The benchmark's pipeline at a small size: truncated complexified
-    solve (the analytic fold) and varimax of 4 modes."""
+    solve (the analytic fold) and varimax of 4 modes (none where
+    ``rotate`` is false)."""
     m = xMCA(*_fields(), device='cpu')
     m.set_solver(truncate=6, seed=3)
     m.normalize()
     m.apply_coslat()
     m.solve(complexify=True)
-    m.rotate(N_ROT)
+    if rotate:
+        m.rotate(N_ROT)
     return m
 
 
@@ -391,8 +395,8 @@ def test_keeping_collects_each_runs_singular_values(model):
 
 def test_the_tail_spans_nest_inside_the_spans_that_held_their_work(model):
     """Per Rule-N run: two ``fold`` spans (one a field, inside the field's
-    ``gram``), one ``reduce`` (the factors and the kernel, inside the
-    run's reduction ``gram``) and two ``recover`` spans (one a side,
+    ``gram``), one ``reduce`` (the factors, inside the run's reduction
+    ``gram``) and two ``recover`` spans (one a side,
     children of the run)."""
     _, spans = _profiled(lambda: _rule_n(model))
     by_id = {s['id']: s for s in spans}
@@ -414,6 +418,37 @@ def test_the_tail_spans_nest_inside_the_spans_that_held_their_work(model):
     _, spans = _profiled(_fit)
     names = collections.Counter(s['name'] for s in spans)
     assert (names['fold'], names['reduce'], names['recover']) == (2, 1, 2)
+
+
+@pytest.mark.parametrize('call, kind, n', [
+    ('fit', 'formed', 1), ('rule_n', 'factored', RUNS),
+    ('rule_n_unrotated', 'formed', RUNS), ('bootstrapping', 'factored', RUNS)])
+def test_reduced_kernels_count_where_the_kernel_is_formed(
+        model, monkeypatch, call, kind, n):
+    """Under a profiler ``reduced_kernels`` counts each reduction of the
+    n x n tail: the fit's solve and an unrotated Rule-N run form ``M`` for
+    their totals, a rotated Rule-N run and a bootstrap run apply it
+    through the factors, and ``_chol_reduce`` returns ``M`` as None
+    exactly there."""
+    from xmca_tpu_torch.core import fastpath as tfast
+
+    calls = {'fit': _fit, 'rule_n': lambda: _rule_n(model),
+             'bootstrapping': lambda: _boot(model)}
+    if call == 'rule_n_unrotated':
+        unrotated = _fit(rotate=False)  # its fit counts before the reset
+        calls[call] = lambda: _rule_n(unrotated)
+    reduce, unformed = tfast._chol_reduce, []
+
+    def recorded(*args, **kwargs):
+        out = reduce(*args, **kwargs)
+        unformed.append(out[2] is None)
+        return out
+
+    monkeypatch.setattr(tfast, '_chol_reduce', recorded)
+    trace.reset_counters('reduced_kernels')
+    _profiled(calls[call])
+    assert trace.counts('reduced_kernels') == {kind: n}
+    assert unformed == [kind == 'factored'] * n
 
 
 def test_long_record_answers_are_bit_equal_with_and_without_a_profiler(

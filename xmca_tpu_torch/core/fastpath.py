@@ -32,8 +32,10 @@ is formed from them up to the reduced kernel; ``route='data'`` where the
 Grams are products over the data), ``subspace`` (:func:`subspace_svd`)
 and ``project`` (the spatial vectors).  The n x n tail records ``fold``
 (:func:`_fold_jitter`: the analytic fold by H and the jitter) and
-``reduce`` (the two sides' Cholesky factors and ``M = La^H Lb / dof``),
-inside the ``gram`` span that holds that work, and ``recover``
+``reduce`` (the two sides' Cholesky factors and, where a caller takes
+totals from it, ``M = La^H Lb / dof``; elsewhere ``subspace`` applies
+``M`` through the factors and never forms it), inside the ``gram`` span
+that holds that work, and ``recover``
 (:func:`_recover`: ``L^-H T`` and the H^T stack) where the spatial
 vectors are formed.
 """
@@ -159,7 +161,8 @@ def analytic_temporal_gram(X, H, jitter_rel=1e-6):
 def analytic_reduced_kernel(Xl, Xr, H, jitter_rel=1e-6):
     """Chol-reduced kernel of the complexified fields (of the fields as
     given where ``H`` is None), ``(M, La, Lb)``."""
-    La, Lb, M = _data_reduce(Xl, Xr, H, None, 0, 0, jitter_rel)[:3]
+    La, Lb, M = _data_reduce(Xl, Xr, H, None, 0, 0, jitter_rel,
+                             form=True)[:3]
     return M, La, Lb
 
 
@@ -221,14 +224,30 @@ def start_block(m, k, dtype, generator):
     return omega.to(dtype)
 
 
+def _kernel_products(M):
+    """``(apply, apply_h, dtype)`` of a square kernel: ``apply(Y) = M Y``,
+    ``apply_h(Y) = M^H Y``.  ``M`` is the kernel as a tensor, or factored
+    as ``(La, Lb, dof)`` for ``M = La^H Lb / dof``, which is then never
+    formed: each product is two thin products with the factors, and the
+    thin result is divided by ``dof``."""
+    if torch.is_tensor(M):
+        return (lambda Y: M @ Y), (lambda Y: M.mH @ Y), M.dtype
+    La, Lb, dof = M
+    return ((lambda Y: (La.mH @ (Lb @ Y)) / dof),
+            (lambda Y: (Lb.mH @ (La @ Y)) / dof), La.dtype)
+
+
 @trace.spanned('subspace')
 def subspace_svd(M, omega, k, n_iter=8, orth='qr'):
-    """Leading-k singular triplets of square ``M`` by subspace iteration
-    from the start block ``omega (m, kk)``; returns ``(U, s, V)``."""
-    Q = _orthonormalize(M @ omega.to(M.dtype), orth)
+    """Leading-k singular triplets of a square kernel by subspace
+    iteration from the start block ``omega (m, kk)``; returns ``(U, s,
+    V)``.  ``M`` is the kernel, or its factors ``(La, Lb, dof)``
+    (:func:`_kernel_products`)."""
+    apply, apply_h, dtype = _kernel_products(M)
+    Q = _orthonormalize(apply(omega.to(dtype)), orth)
     for _ in range(n_iter):
-        Q = _orthonormalize(M @ (M.mH @ Q), orth)
-    B = Q.mH @ M
+        Q = _orthonormalize(apply(apply_h(Q)), orth)
+    B = apply_h(Q).mH
     # a non-finite kernel gives NaN triplets (as XLA's eigh does) instead
     # of torch's error: eigh runs on the identity and its results are
     # replaced, with no host read
@@ -240,8 +259,8 @@ def subspace_svd(M, omega, k, n_iter=8, orth='qr'):
     W = torch.flip(W.masked_fill(~finite, float('nan')), (-1,))
     s = torch.sqrt(torch.clamp(w, min=0.0))
     U = Q @ W
-    safe = torch.where(s > 0, s, torch.ones_like(s)).to(M.dtype)
-    V = M.mH @ (U / safe[None, :])
+    safe = torch.where(s > 0, s, torch.ones_like(s)).to(dtype)
+    V = apply_h(U / safe[None, :])
     return U[:, :k], s[:k], V[:, :k]
 
 
@@ -264,23 +283,28 @@ def nuclear_norm_surrogate(M):
     return torch.real(torch.trace(W.mH @ M))
 
 
-def _chol_reduce(factors, dof, omega, k, n_iter, **gram):
+def _chol_reduce(factors, dof, omega, k, n_iter, form, **gram):
     """The reduction of the n x n tail, for every route.
 
     ``factors()`` returns the lower Cholesky factors ``(La, Lb)`` of the
-    two sides' jittered temporal Grams; they and the reduced kernel ``M =
-    La^H Lb / dof`` are one ``gram`` span with the route's attributes
-    ``gram``, around the tail's ``reduce`` span.  The subspace SVD of
-    ``M`` from the start block ``omega`` follows (none where ``omega`` is
-    None).  Returns ``(La, Lb, M, U, s, V)``; a caller takes the totals it
-    needs from ``M``.
+    two sides' jittered temporal Grams; they and, where ``form`` is true,
+    the reduced kernel ``M = La^H Lb / dof`` are one ``gram`` span with the
+    route's attributes ``gram``, around the tail's ``reduce`` span.  The
+    subspace SVD from the start block ``omega`` follows (none where
+    ``omega`` is None), of ``M`` or, unformed, through the factors.
+    Returns ``(La, Lb, M, U, s, V)``, ``M`` None unless formed: a caller
+    forms it only to take totals from it.  Counts the reduction in
+    ``trace.counters()['reduced_kernels']``, as ``'formed'`` or
+    ``'factored'``.
     """
+    trace.count('reduced_kernels', 'formed' if form else 'factored')
     with trace.span('gram', **gram), trace.span('reduce'):
         La, Lb = factors()
-        M = (La.mH @ Lb) / dof
+        M = (La.mH @ Lb) / dof if form else None
     if omega is None:
         return La, Lb, M, None, None, None
-    return (La, Lb, M) + subspace_svd(M, omega, k=k, n_iter=n_iter)
+    return (La, Lb, M) + subspace_svd((La, Lb, dof) if M is None else M,
+                                      omega, k=k, n_iter=n_iter)
 
 
 def _recover(L, T_side, H=None):
@@ -307,16 +331,16 @@ def combine_analytic_projection(P):
     return torch.complex(P[:, :k], P[:, k:])
 
 
-def _data_reduce(Xl, Xr, H, omega, k, n_iter, jitter_rel):
+def _data_reduce(Xl, Xr, H, omega, k, n_iter, jitter_rel, form):
     """The data route into the tail: each field's jittered temporal Gram
     (folded with ``H``, :func:`analytic_temporal_gram`) and its factor,
-    then :func:`_chol_reduce`."""
+    then :func:`_chol_reduce` (``M`` formed where ``form`` is true)."""
     def factors():
         return tuple(_cholesky(analytic_temporal_gram(X, H, jitter_rel))
                      for X in (Xl, Xr))
 
     return _chol_reduce(factors, Xl.shape[0] - 1, omega, k, n_iter,
-                        route='data')
+                        form=form, route='data')
 
 
 def _spatial_vectors(X, L, T_side, H=None):
@@ -345,7 +369,7 @@ def fast_solve_truncated_totals_analytic(Xl, Xr, H, omega, n_modes,
     contract as :func:`fast_solve_truncated_totals` applied to
     ``analytic(Xl), analytic(Xr)``."""
     La, Lb, M, U, s, V = _data_reduce(Xl, Xr, H, omega, n_modes, n_iter,
-                                      jitter_rel)
+                                      jitter_rel, form=True)
     return (s, _spatial_vectors(Xl, La, U, H), _spatial_vectors(Xr, Lb, V, H),
             nuclear_norm(M), torch.sum(torch.abs(M) ** 2))
 
@@ -380,8 +404,8 @@ def _rotated_variance(Vl, Vr, s, power, tol, polar_method, space=None):
 
 def _rotated_of(Xl, Xr, H, omega, n_rot, power, tol, n_iter, jitter_rel,
                 bivariate, polar_method):
-    La, Lb, M, U, s, V = _data_reduce(Xl, Xr, H, omega, n_rot, n_iter,
-                                      jitter_rel)
+    La, Lb, _, U, s, V = _data_reduce(Xl, Xr, H, omega, n_rot, n_iter,
+                                      jitter_rel, form=False)
     Vl = _spatial_vectors(Xl, La, U, H)
     Vr = _spatial_vectors(Xr, Lb, V, H) if bivariate else None
     var, conv, _ = _rotated_variance(Vl, Vr, s, power, tol, polar_method)
@@ -406,7 +430,8 @@ def fast_spectrum_analytic(Xl, Xr, H, omega, k, n_iter=8, with_nuclear=True,
     """Top-k complexified kernel spectrum from real fields (of the fields
     as given where ``H`` is None) and its total (the surrogate-schedule
     nuclear norm, or the sum of the k values)."""
-    _, _, M, _, s, _ = _data_reduce(Xl, Xr, H, omega, k, n_iter, jitter_rel)
+    _, _, M, _, s, _ = _data_reduce(Xl, Xr, H, omega, k, n_iter, jitter_rel,
+                                    form=with_nuclear)
     return s, nuclear_norm_surrogate(M) if with_nuclear else torch.sum(s)
 
 
@@ -482,10 +507,12 @@ def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, rotated,
     ``grams[i]`` is field i's jittered (folded) Gram, ``mus[i]`` its
     column means (p_i,), and ``project(i, S)`` returns ``X_i^T S``
     (p_i, m) f32 for the raw field i; ``H`` is the f32 Hilbert operator
-    of complexified fields, else None.  Cholesky, the reduced kernel and
-    the subspace SVD; unrotated, the spectrum and its NS nuclear-norm
-    total; rotated, the centered back-projection of the loadings and
-    promax in the space :func:`ensemble_space` picks.  Returns
+    of complexified fields, else None.  Cholesky and the subspace SVD of
+    the reduced kernel; unrotated, the spectrum and its NS nuclear-norm
+    total (the kernel formed for it); rotated, the centered
+    back-projection of the loadings and promax in the space
+    :func:`ensemble_space` picks (the kernel applied through the
+    factors).  Returns
     ``(variance, total, converged, n_iter_rot)``.
     """
     from xmca_tpu_torch.core.rotation import ensemble_space
@@ -497,7 +524,7 @@ def _surrogate_spectrum(grams, mus, project, n_obs, n_vars, H, rotated,
         return La, _cholesky(grams[1]) if bivariate else La
 
     La, Lb, M, U, s, V = _chol_reduce(factors, n_obs - 1, omega, n_rot,
-                                      n_iter)
+                                      n_iter, form=not rotated)
     if not rotated:
         return (s, nuclear_norm_surrogate(M),
                 trace.to_host(torch.isfinite(s).all(), 'variance.finite',

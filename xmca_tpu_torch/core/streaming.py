@@ -432,7 +432,7 @@ def streamed_mca(chunks_left, chunks_right, n_obs, n_modes, *,
     gen.manual_seed(int(seed))
     omega = _fast.start_block(n_obs, n_modes, Gl.dtype, gen)
     La, Lb, M, U, s, V = _fast._chol_reduce(factors, n_obs - 1, omega,
-                                            n_modes, n_iter)
+                                            n_modes, n_iter, form=True)
     totals = torch.stack([_fast.nuclear_norm(M), torch.sum(torch.abs(M) ** 2)])
     del Gl, Gr, M
 

@@ -570,8 +570,9 @@ def _time_resample_runs(grams, pool, widths, eps, H, k, n_iter, dtype):
                   for i, L in enumerate(fixed)]
             return Ls[0], Ls[-1]
 
-        La, Lb, M, U, s, V = _fast._chol_reduce(factors, dof, omega, k,
-                                                n_iter, route='stored')
+        La, Lb, _, U, s, V = _fast._chol_reduce(factors, dof, omega, k,
+                                                n_iter, form=False,
+                                                route='stored')
 
         def weight(i):
             return _resample_weights((La, Lb)[i], (U, V)[i], H, dtype,

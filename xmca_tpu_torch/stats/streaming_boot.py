@@ -17,8 +17,9 @@ temporal Gram is index algebra on the stored one::
     A A^T = C G[idx][:, idx] C          (no pass over the data)
 
 Then the analytic fold (complexified), the jitter at the kept width,
-Cholesky on each side, ``M = La^H Lb / dof`` and the subspace SVD: an
-unrotated run reads no data at all.  A rotated run also needs the
+Cholesky on each side and the subspace SVD of ``M = La^H Lb / dof``
+through the two factors (``M`` is never formed): an unrotated run reads
+no data at all.  A rotated run also needs the
 resample's spatial loadings, ``V = A^T Z = Xc^T (P^T C Z)`` with ``Z``
 the real recovery stack: the weights ``Y = P^T C Z`` (each duplicated
 draw adds its row, ``index_add_``) of every run of a batch go through ONE
@@ -481,7 +482,7 @@ def _bootstrap_axis1(su, Gl, Gr, seeds, batch_size):
         for r, (_, omega) in enumerate(draws):
             La, Lb, _, U, s, V = _fast._chol_reduce(
                 functools.partial(factors, G, nb, r), su.n_obs - 1, omega,
-                su.kk, su.n_iter)
+                su.kk, su.n_iter, form=False)
             if su.rotated:
                 runs.append((s, _resample_weights(La, U, su.H, su.dtype),
                              _resample_weights(Lb, V, su.H, su.dtype)

@@ -34,7 +34,11 @@ it::
   ``'stored'`` or ``'data'``, :func:`xmca_tpu_torch.stats.significance.
   bootstrap_spectra`) and the series that boundary extension forecasts
   or backcasts, by method (``forecast_columns``: ``'exp'`` or
-  ``'theta'``, :func:`xmca_tpu_torch.core.preprocess.extend_field`).
+  ``'theta'``, :func:`xmca_tpu_torch.core.preprocess.extend_field`), and
+  the n x n tail's reductions by whether they form the reduced kernel
+  (``reduced_kernels``: ``'formed'`` where a caller takes totals from it,
+  ``'factored'`` where the subspace SVD applies it through its factors,
+  :func:`xmca_tpu_torch.core.fastpath._chol_reduce`).
   They count with or without a profiler.
 * :func:`keeping` opens a list for the intermediate values a site hands
   :func:`keep` under a name, for a caller that checks them (a benchmark's
@@ -67,7 +71,7 @@ __all__ = ['MAX_SPANS', 'enabled', 'span', 'spanned', 'annotate', 'add',
 MAX_SPANS = 1_000_000
 
 _KINDS = ('launches', 'collectives', 'collective_bytes', 'host_syncs',
-          'h2d_bytes', 'gram_routes', 'forecast_columns')
+          'h2d_bytes', 'gram_routes', 'forecast_columns', 'reduced_kernels')
 _COUNTERS = {kind: collections.Counter() for kind in _KINDS}
 
 # the lists keeping() holds open, by name
