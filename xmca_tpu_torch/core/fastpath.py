@@ -270,17 +270,26 @@ _NS_SCALES_EXACT = tuple(ns_polar_schedule(l0=1e-9, tol=1e-8))
 _NS_SCALES_SURR = tuple(ns_polar_schedule(l0=1e-7, tol=1e-4))
 
 
+def _nuclear(M, scales, schedule):
+    """``Re tr(W^H M)`` of the scaled Newton-Schulz polar iterate ``W`` of
+    ``M`` on ``scales``: one ``nuclear`` span (its ``steps`` and
+    ``schedule``), the steps counted in ``trace.counters()['ns_steps']``
+    under ``schedule``."""
+    trace.count('ns_steps', schedule, len(scales))
+    with trace.span('nuclear', steps=len(scales), schedule=schedule):
+        W = ns_polar_iterate_scaled(M, scales)
+        return torch.real(torch.trace(W.mH @ M))
+
+
 def nuclear_norm(M):
     """``sum(svals(M))`` via the scaled Newton-Schulz polar iteration
     (exact schedule, every step at the operands' precision)."""
-    W = ns_polar_iterate_scaled(M, _NS_SCALES_EXACT)
-    return torch.real(torch.trace(W.mH @ M))
+    return _nuclear(M, _NS_SCALES_EXACT, 'exact')
 
 
 def nuclear_norm_surrogate(M):
     """Nuclear norm on the 1e-4 schedule, for per-surrogate totals."""
-    W = ns_polar_iterate_scaled(M, _NS_SCALES_SURR)
-    return torch.real(torch.trace(W.mH @ M))
+    return _nuclear(M, _NS_SCALES_SURR, 'surrogate')
 
 
 def _chol_reduce(factors, dof, omega, k, n_iter, form, **gram):

@@ -38,7 +38,11 @@ it::
   the n x n tail's reductions by whether they form the reduced kernel
   (``reduced_kernels``: ``'formed'`` where a caller takes totals from it,
   ``'factored'`` where the subspace SVD applies it through its factors,
-  :func:`xmca_tpu_torch.core.fastpath._chol_reduce`).
+  :func:`xmca_tpu_torch.core.fastpath._chol_reduce`), and the
+  Newton-Schulz steps of the nuclear-norm totals by schedule
+  (``ns_steps``: ``'exact'`` for a solve's total, ``'surrogate'`` for an
+  unrotated ensemble run's, :func:`xmca_tpu_torch.core.fastpath.
+  _nuclear`).
   They count with or without a profiler.
 * :func:`keeping` opens a list for the intermediate values a site hands
   :func:`keep` under a name, for a caller that checks them (a benchmark's
@@ -71,7 +75,8 @@ __all__ = ['MAX_SPANS', 'enabled', 'span', 'spanned', 'annotate', 'add',
 MAX_SPANS = 1_000_000
 
 _KINDS = ('launches', 'collectives', 'collective_bytes', 'host_syncs',
-          'h2d_bytes', 'gram_routes', 'forecast_columns', 'reduced_kernels')
+          'h2d_bytes', 'gram_routes', 'forecast_columns', 'reduced_kernels',
+          'ns_steps')
 _COUNTERS = {kind: collections.Counter() for kind in _KINDS}
 
 # the lists keeping() holds open, by name
